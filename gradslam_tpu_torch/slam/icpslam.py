@@ -1,0 +1,510 @@
+"""ICP-SLAM, the end-to-end dense SLAM driver (PyTorch port of
+gradslam_tpu.slam.icpslam).
+
+A localize-then-map loop over frames: the frame loop is a Python loop whose
+body never waits on the host (no ``.item()``, no data-dependent shapes), so
+the card runs ahead of it.
+
+  - Localization projects the live map (or the candidate rows carried from
+    the previous fusion step) into the previous frame, keeps the points on
+    the ``dsratio`` pixel grid, compacts them into a fixed-size target
+    buffer and runs the batched gradICP / ICP solver with the KNN kernel.
+  - Mapping is the PointFusion update (or the append-only aggregate) of
+    the fixed-capacity arena.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, fields
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..geometry import compose_transformations
+from ..odometry.icputils import point_to_plane_ICP, point_to_plane_gradICP
+from ..ops.masking import compact_masked
+from ..structures.maparena import MapState, init_map, map_mask, map_to_pointclouds
+from ..structures.rgbdimages import (
+    RGBDImages,
+    compute_global_normal_map,
+    compute_global_vertex_map,
+    compute_normal_map,
+    compute_vertex_map,
+)
+from ..utils.device import resolve_device
+from .fusionutils import _project_points_to_frame, aggregate_map_dense, fusion_update_compact
+
+__all__ = [
+    "ICPSLAM",
+    "SLAMOptions",
+    "SLAMState",
+    "slam_step",
+    "slam_init_state",
+    "slam_step_state",
+    "slam_sequence",
+    "slam_state_from_numpy",
+    "slam_state_to_numpy",
+]
+
+
+@dataclass(frozen=True)
+class SLAMOptions:
+    """Static SLAM configuration; the fields and defaults of the JAX
+    package's ``SLAMOptions``.
+
+    Options of paths not ported yet (``assoc='projective'``,
+    ``assoc_window > 0``, ``block_size``) raise ``NotImplementedError``
+    when the step runs; ``merge_window``, ``model_rows`` and
+    ``window_merge`` only shape those paths or the TPU layout and are
+    accepted and ignored.
+    """
+
+    odom: str = "gradicp"  # 'gt' | 'icp' | 'gradicp'
+    assoc: str = "knn"  # 'knn' ('projective' waits for ROADMAP A8)
+    dsratio: int = 4
+    pyramid: Optional[Tuple[int, ...]] = None  # coarse-to-fine dsratios
+    numiters: int = 20
+    damp: float = 1e-8
+    dist_thresh: Optional[float] = None  # odometry gate (squared distance)
+    robust_delta: Optional[float] = None  # Huber threshold on ICP residuals
+    fusion: bool = False  # False -> aggregate mapping (ICPSLAM)
+    dist_th: float = 0.05
+    dot_th: float = 0.93969262  # cos 20 deg
+    sigma: float = 0.6
+    map_capacity: Optional[int] = None  # default: L*H*W
+    tgt_capacity: Optional[int] = None  # odometry candidate buffer
+    active_capacity: Optional[int] = None  # fusion active set (2*H*W)
+    block_size: Optional[int] = None
+    visible_capacity: Optional[int] = None
+    lambda_max: float = 2.0
+    B: float = 1.0
+    B2: float = 1.0
+    nu: float = 200.0
+    reuse_actives: bool = True  # odometry candidates from the fusion step
+    merge_window: int = -1
+    assoc_window: int = 0
+    odom_targets: str = "map"  # aggregate mapping: 'map' | 'recent'
+    model_rows: str = "auto"
+    window_merge: str = "dense"
+
+
+def _check_ported(opts: SLAMOptions) -> None:
+    """Raises for an option value that selects a path not ported yet."""
+    if opts.assoc == "projective":
+        raise NotImplementedError("assoc='projective' waits for ROADMAP A8")
+    if opts.assoc_window and opts.assoc_window > 0:
+        raise NotImplementedError("assoc_window > 0 waits for ROADMAP A8")
+    if opts.block_size is not None:
+        raise NotImplementedError("block_size (spatial block gating) waits for ROADMAP A8")
+
+
+def _frame_maps_local(depth, intrinsics):
+    """Pose-independent maps of a (B, H, W, 1) depth frame:
+    (vertex map, normal map, valid mask)."""
+    depth5 = depth[:, None]
+    vm5 = compute_vertex_map(depth5, intrinsics)
+    valid5 = depth5 > 0
+    nm5 = compute_normal_map(vm5, valid5)
+    return vm5[:, 0], nm5[:, 0], valid5[:, 0, ..., 0]
+
+
+def _frame_maps(rgb, depth, intrinsics, pose, local_maps=None):
+    """Derived maps of a (B, H, W, .) frame at the (B, 4, 4) pose:
+    (vm, nm, global vm, global nm, valid)."""
+    if local_maps is None:
+        local_maps = _frame_maps_local(depth, intrinsics)
+    vm, nm, valid = local_maps
+    valid5 = valid[:, None, ..., None]
+    gv = compute_global_vertex_map(vm[:, None], pose[:, None], valid5)[:, 0]
+    gn = compute_global_normal_map(nm[:, None], pose[:, None])[:, 0]
+    return vm, nm, gv, gn, valid
+
+
+def _take_rows(data, idx):
+    return torch.gather(data, 1, idx.long()[..., None].expand(-1, -1, data.shape[-1]))
+
+
+def _odometry_candidates(map_state, cand_slots, cand_valid, app_start, win):
+    """Candidate rows for localization at the previous pose: the previous
+    fusion step's active set plus the rows it appended, which lie
+    contiguously at ``[app_start, num_points)``.
+
+    Returns:
+        (rows (B, A+win, 12), valid (B, A+win) bool).
+    """
+    CAP = map_state.capacity
+    win = min(win, CAP)
+    rows_a = _take_rows(map_state.data, cand_slots)
+    start = torch.clamp(app_start, 0, CAP - win)
+    slot_n = start[:, None] + torch.arange(win, dtype=torch.int32, device=app_start.device)[None, :]
+    rows_n = _take_rows(map_state.data, slot_n)
+    valid_n = (slot_n >= app_start[:, None]) & (slot_n < map_state.num_points[:, None])
+    return torch.cat([rows_a, rows_n], dim=1), torch.cat([cand_valid, valid_n], dim=1)
+
+
+def _default_tgt_capacity(H, W, ds):
+    cap = 4 * ((H + ds - 1) // ds) * ((W + ds - 1) // ds)
+    return max(1024, ((cap + 1023) // 1024) * 1024)
+
+
+def _localize(map_state, prev_pose, rgb, depth, intrinsics, opts: SLAMOptions, cand=None,
+              local_maps=None):
+    """Odometry: the new (B, 4, 4) pose of the live frame.
+
+    The live frame is seeded with the previous pose; the source cloud is
+    the strided global vertex map; the targets are the map points active
+    in the previous frame that land on the ``ds`` pixel grid. ``cand``
+    (optional ``(slots, valid, app_start)``) restricts the projection and
+    compaction to the rows carried from the previous fusion step.
+    """
+    B, H, W, _ = rgb.shape
+    _, _, gv, _, valid = _frame_maps(rgb, depth, intrinsics, prev_pose, local_maps)
+    levels = tuple(opts.pyramid or (opts.dsratio,))
+    tgt_caps = tuple(opts.tgt_capacity or _default_tgt_capacity(H, W, ds) for ds in levels)
+
+    if cand is None:
+        src_rows, src_live = map_state.data, map_mask(map_state)
+    else:
+        src_rows, src_live = _odometry_candidates(map_state, *cand, win=H * W)
+    h, w, active = _project_points_to_frame(src_rows[..., 0:3], src_live, prev_pose, intrinsics, H, W)
+
+    transform = None
+    for ds, tc in zip(levels, tgt_caps):
+        idx, tgt_valid = compact_masked(active & (h % ds == 0) & (w % ds == 0), tc)
+        rows = _take_rows(src_rows, idx)
+        src = gv[:, ::ds, ::ds].reshape(B, -1, 3)
+        src_valid = valid[:, ::ds, ::ds].reshape(B, -1).to(src.dtype)
+        common = dict(
+            numiters=opts.numiters,
+            damp=opts.damp,
+            dist_thresh=opts.dist_thresh,
+            robust_delta=opts.robust_delta,
+            src_valid=src_valid,
+            tgt_valid=tgt_valid,
+        )
+        if opts.odom == "gradicp":
+            transform = point_to_plane_gradICP(
+                src, rows[..., 0:3], rows[..., 3:6], transform,
+                lambda_max=opts.lambda_max, B=opts.B, B2=opts.B2, nu=opts.nu, **common,
+            )
+        else:
+            transform = point_to_plane_ICP(src, rows[..., 0:3], rows[..., 3:6], transform, **common)
+    return compose_transformations(transform, prev_pose)
+
+
+def _map_update(map_state, pose, rgb, depth, intrinsics, opts: SLAMOptions,
+                return_active: bool = False, local_maps=None):
+    """Mapping: fuse (or aggregate) the live frame into the arena.
+
+    With ``return_active`` the fusion path also returns
+    ``(slots, valid, model_img)``.
+    """
+    vm, nm, gv, gn, valid = _frame_maps(rgb, depth, intrinsics, pose, local_maps)
+    if opts.fusion:
+        H, W = rgb.shape[1:3]
+        return fusion_update_compact(
+            map_state, gv, gn, vm, rgb, valid, pose, intrinsics,
+            opts.dist_th, opts.dot_th, opts.sigma,
+            opts.active_capacity or 2 * H * W,
+            opts.block_size, opts.visible_capacity,
+            return_active=return_active,
+            assoc_window=opts.assoc_window,
+        )
+    out = aggregate_map_dense(map_state, gv, gn, vm, rgb, valid, opts.sigma)
+    return (out, None) if return_active else out
+
+
+def slam_step(map_state: MapState, prev_pose, rgb, depth, intrinsics, opts: SLAMOptions,
+              gt_pose=None):
+    """One SLAM step on a bare arena: localize (full-arena candidates),
+    then map. Returns ``(new_map_state, pose)``."""
+    _check_ported(opts)
+    if opts.odom == "gt":
+        if gt_pose is None:
+            raise ValueError("gt odometry requires gt_pose")
+        pose = gt_pose
+    else:
+        if not opts.fusion and opts.odom_targets == "recent":
+            raise ValueError(
+                "odom_targets='recent' needs the carried append window; use "
+                "slam_init_state/slam_step_state or slam_sequence"
+            )
+        pose = _localize(map_state, prev_pose, rgb, depth, intrinsics, opts)
+    return _map_update(map_state, pose, rgb, depth, intrinsics, opts), pose
+
+
+class SLAMState(NamedTuple):
+    """Incremental SLAM state: everything the next frame needs.
+
+    Attributes:
+        map_state: the arena.
+        pose: (B, 4, 4) last frame's pose.
+        cand_slots / cand_valid: (B, A) compacted fusion active set.
+        app_start: (B,) first arena slot appended by the last frame.
+        model_img: (B, H*W) int32 arena slot fused at each pixel (CAP none).
+        model_rows: None on the ported paths (projective odometry only).
+    """
+
+    map_state: MapState
+    pose: torch.Tensor
+    cand_slots: torch.Tensor
+    cand_valid: torch.Tensor
+    app_start: torch.Tensor
+    model_img: torch.Tensor
+    model_rows: Optional[torch.Tensor] = None
+
+
+def slam_init_state(rgb, depth, intrinsics, opts: SLAMOptions, capacity: int, pose0=None,
+                    labels=None) -> SLAMState:
+    """Maps the first (B, H, W, .) frame into a fresh arena of ``capacity``
+    rows at ``pose0`` (identity when None)."""
+    _check_ported(opts)
+    if labels is not None:
+        raise NotImplementedError("semantic labels wait for ROADMAP A8")
+    B, H, W, _ = rgb.shape
+    dev, dtype = rgb.device, rgb.dtype
+    map_state = init_map(B, capacity, dtype, device=dev)
+    if pose0 is None:
+        pose0 = torch.eye(4, dtype=dtype, device=dev).expand(B, 4, 4)
+    A = opts.active_capacity or 2 * H * W
+    app_start = map_state.num_points
+    if opts.fusion:
+        map_state, (slots, valid, model_img) = _map_update(
+            map_state, pose0, rgb, depth, intrinsics, opts, return_active=True
+        )
+    else:
+        map_state = _map_update(map_state, pose0, rgb, depth, intrinsics, opts)
+        slots = torch.zeros((B, A), dtype=torch.int32, device=dev)
+        valid = torch.zeros((B, A), dtype=torch.bool, device=dev)
+        model_img = torch.full((B, H * W), capacity, dtype=torch.int32, device=dev)
+    return SLAMState(map_state, pose0, slots, valid, app_start, model_img)
+
+
+def slam_step_state(state: SLAMState, rgb, depth, intrinsics, opts: SLAMOptions, gt_pose=None,
+                    labels=None, local_maps=None) -> SLAMState:
+    """One SLAM step on a :class:`SLAMState` (the frame-loop body).
+
+    With fusion and ICP odometry, the odometry candidates are the carried
+    fusion active set plus the last frame's appends, not the whole arena.
+    """
+    _check_ported(opts)
+    if labels is not None:
+        raise NotImplementedError("semantic labels wait for ROADMAP A8")
+    if opts.odom == "gt":
+        if gt_pose is None:
+            raise ValueError("gt odometry requires gt_pose")
+        pose = gt_pose
+    else:
+        cand = None
+        if opts.fusion and opts.reuse_actives:
+            cand = (state.cand_slots, state.cand_valid, state.app_start)
+        elif not opts.fusion and opts.odom_targets == "recent":
+            # append-only mapping: the previous frame's appends alone
+            empty = state.cand_slots[:, :0]
+            cand = (empty, empty.bool(), state.app_start)
+        pose = _localize(state.map_state, state.pose, rgb, depth, intrinsics, opts,
+                         cand=cand, local_maps=local_maps)
+    app_start = state.map_state.num_points
+    if opts.fusion:
+        m, (slots, valid, model_img) = _map_update(
+            state.map_state, pose, rgb, depth, intrinsics, opts,
+            return_active=True, local_maps=local_maps,
+        )
+    else:
+        m = _map_update(state.map_state, pose, rgb, depth, intrinsics, opts, local_maps=local_maps)
+        slots, valid, model_img = state.cand_slots, state.cand_valid, state.model_img
+    return SLAMState(m, pose, slots, valid, app_start, model_img)
+
+
+def slam_sequence(rgb_seq, depth_seq, intrinsics, poses_seq, opts: SLAMOptions, capacity: int,
+                  labels_seq=None):
+    """Runs SLAM over a whole (B, L, H, W, .) sequence.
+
+    Args:
+        rgb_seq: (B, L, H, W, 3); depth_seq: (B, L, H, W, 1).
+        intrinsics: (B, 1, 4, 4).
+        poses_seq: (B, L, 4, 4) ground-truth / seed poses, or None.
+        capacity: arena capacity.
+
+    Returns:
+        (map_state, poses (B, L, 4, 4)).
+    """
+    if labels_seq is not None:
+        raise NotImplementedError("semantic labels wait for ROADMAP A8")
+    L = rgb_seq.shape[1]
+    if opts.odom == "gt" and poses_seq is None:
+        raise ValueError("gt odometry requires poses")
+    pose0 = None if poses_seq is None else poses_seq[:, 0]
+    state = slam_init_state(rgb_seq[:, 0], depth_seq[:, 0], intrinsics, opts, capacity, pose0)
+    poses = [state.pose]
+    for t in range(1, L):
+        gt = poses_seq[:, t] if opts.odom == "gt" else None
+        state = slam_step_state(state, rgb_seq[:, t], depth_seq[:, t], intrinsics, opts, gt)
+        poses.append(state.pose)
+    return state.map_state, torch.stack(poses, dim=1)
+
+
+def slam_state_from_numpy(map_data, num_points, pose, cand_slots, cand_valid, app_start,
+                          model_img, model_rows=None, device=None) -> SLAMState:
+    """A :class:`SLAMState` from the JAX package's ``SLAMState`` fields as
+    numpy arrays (``map_state`` given as its ``data`` and ``num_points``)."""
+    from ..structures.maparena import map_state_from_numpy
+
+    dev = resolve_device(device)
+    i32 = lambda x: torch.tensor(np.asarray(x, dtype=np.int32), device=dev)
+    return SLAMState(
+        map_state=map_state_from_numpy(map_data, num_points, dev),
+        pose=torch.tensor(np.asarray(pose, dtype=np.float32), device=dev),
+        cand_slots=i32(cand_slots),
+        cand_valid=torch.tensor(np.asarray(cand_valid, dtype=bool), device=dev),
+        app_start=i32(app_start),
+        model_img=i32(model_img),
+        model_rows=None
+        if model_rows is None
+        else torch.tensor(np.asarray(model_rows, dtype=np.float32), device=dev),
+    )
+
+
+def slam_state_to_numpy(state: SLAMState) -> dict:
+    """The inverse of :func:`slam_state_from_numpy`: a dict of its
+    keyword arguments as numpy arrays."""
+    np_ = lambda x: None if x is None else x.detach().cpu().numpy()
+    return dict(
+        map_data=np_(state.map_state.data),
+        num_points=np_(state.map_state.num_points),
+        pose=np_(state.pose),
+        cand_slots=np_(state.cand_slots),
+        cand_valid=np_(state.cand_valid),
+        app_start=np_(state.app_start),
+        model_img=np_(state.model_img),
+        model_rows=np_(state.model_rows),
+    )
+
+
+_OPTION_FIELDS = {f.name for f in fields(SLAMOptions)}
+
+
+class ICPSLAM:
+    """ICP-SLAM pipeline: aggregate mapping with ICP odometry.
+
+    Example:
+        >>> slam = ICPSLAM(odom='gradicp')
+        >>> pointclouds, poses = slam(rgbdimages)
+
+    Args:
+        odom: 'gt', 'icp' or 'gradicp'.
+        dsratio, numiters, damp, dist_thresh, map_capacity, tgt_capacity:
+            as in :class:`SLAMOptions`.
+        loop_closure: only None; loop closure waits for ROADMAP A12.
+        device: where the run happens; default ``"cuda"`` (raises when no
+            CUDA device is present; pass ``device="cpu"`` for the CPU).
+        **kwargs: further :class:`SLAMOptions` fields.
+    """
+
+    _fusion = False
+
+    def __init__(
+        self,
+        *,
+        odom: str = "gradicp",
+        dsratio: int = 4,
+        numiters: int = 20,
+        damp: float = 1e-8,
+        dist_thresh: Optional[float] = None,
+        map_capacity: Optional[int] = None,
+        tgt_capacity: Optional[int] = None,
+        loop_closure: Optional[str] = None,
+        loop_closure_kwargs: Optional[dict] = None,
+        device=None,
+        **kwargs,
+    ):
+        if odom not in ("gt", "icp", "gradicp"):
+            raise ValueError(f"odometry method {odom!r} not in ('gt', 'icp', 'gradicp')")
+        if loop_closure is not None or loop_closure_kwargs:
+            raise NotImplementedError("loop closure waits for ROADMAP A12")
+        unknown = set(kwargs) - _OPTION_FIELDS
+        if unknown:
+            raise TypeError(f"unknown SLAM options: {sorted(unknown)}")
+        for key, allowed in (
+            ("assoc", ("knn", "projective")),
+            ("model_rows", ("auto", "dense", "gather")),
+            ("window_merge", ("dense", "rows")),
+            ("odom_targets", ("map", "recent")),
+        ):
+            if key in kwargs and kwargs[key] not in allowed:
+                raise ValueError(f"{key} {kwargs[key]!r} not in {allowed}")
+        if kwargs.get("odom_targets") == "recent" and self._fusion:
+            raise ValueError("odom_targets='recent' applies to aggregate mapping (ICPSLAM) only")
+        self.device = resolve_device(device)
+        self.odom = odom
+        self.opts = SLAMOptions(
+            odom=odom, dsratio=dsratio, numiters=numiters, damp=damp,
+            dist_thresh=dist_thresh, fusion=self._fusion, map_capacity=map_capacity,
+            tgt_capacity=tgt_capacity, **kwargs,
+        )
+        _check_ported(self.opts)
+
+    def __call__(self, frames: RGBDImages):
+        return self.forward(frames)
+
+    def _frames(self, frames: RGBDImages):
+        if not isinstance(frames, RGBDImages):
+            raise TypeError(f"expected RGBDImages, got {type(frames).__name__}")
+        if frames.device != self.device:
+            frames = frames.to(self.device)
+        return frames.to_channels_last()
+
+    def forward(self, frames: RGBDImages):
+        """Runs SLAM over a whole sequence.
+
+        Returns:
+            (pointclouds, poses): the map as :class:`Pointclouds` and the
+            (B, L, 4, 4) poses.
+        """
+        rgbd = self._frames(frames)
+        B, L, H, W = rgbd.shape
+        capacity = self.opts.map_capacity or L * H * W
+        map_state, poses = slam_sequence(
+            rgbd.rgb_image, rgbd.depth_image, rgbd.intrinsics, rgbd.poses, self.opts, capacity
+        )
+        return map_to_pointclouds(map_state), poses
+
+    def step(self, map_state: MapState, live_frame: RGBDImages, prev_pose=None):
+        """Localizes and maps one (B, 1) frame on a bare arena.
+
+        Returns:
+            (map_state, pose (B, 4, 4)).
+        """
+        rgbd = self._frames(live_frame)
+        rgb, depth = rgbd.rgb_image[:, 0], rgbd.depth_image[:, 0]
+        if prev_pose is None or self.odom == "gt":
+            if not rgbd.has_poses:
+                raise ValueError("live_frame must have poses for the first frame or gt odometry")
+            pose = rgbd.poses[:, 0]
+            return _map_update(map_state, pose, rgb, depth, rgbd.intrinsics, self.opts), pose
+        return slam_step(map_state, prev_pose, rgb, depth, rgbd.intrinsics, self.opts)
+
+    def init_state(self, live_frame: RGBDImages, capacity: Optional[int] = None) -> SLAMState:
+        """Starts an incremental run: maps the first frame into a fresh
+        arena of ``capacity`` rows (default ``map_capacity`` or 100 frames)."""
+        rgbd = self._frames(live_frame)
+        B, L, H, W = rgbd.shape
+        cap = capacity or self.opts.map_capacity or 100 * H * W
+        pose0 = rgbd.poses[:, 0] if rgbd.has_poses else None
+        return slam_init_state(
+            rgbd.rgb_image[:, 0], rgbd.depth_image[:, 0], rgbd.intrinsics, self.opts, cap, pose0
+        )
+
+    def step_state(self, state: SLAMState, live_frame: RGBDImages) -> SLAMState:
+        """One incremental step on a :class:`SLAMState`."""
+        rgbd = self._frames(live_frame)
+        gt = rgbd.poses[:, 0] if self.opts.odom == "gt" and rgbd.has_poses else None
+        if self.opts.odom == "gt" and gt is None:
+            raise ValueError("gt odometry requires live_frame poses")
+        return slam_step_state(
+            state, rgbd.rgb_image[:, 0], rgbd.depth_image[:, 0], rgbd.intrinsics, self.opts, gt
+        )
+
+    def __repr__(self):
+        return f"{type(self).__name__}(odom={self.odom!r}, device={self.device}, opts={self.opts})"
