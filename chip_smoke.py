@@ -2,20 +2,33 @@
 
     python3 chip_smoke.py
 
-Builds every CUDA kernel of the port from ``gradslam_tpu_torch/csrc``,
-holds each kernel against its plain PyTorch version on the card, then
-drives the port's main path (``PointFusion()`` with gradICP odometry, KNN
-association, exact full-arena fusion) through its public API:
+Builds every CUDA kernel of the port from ``gradslam_tpu_torch/csrc`` (one
+``nvcc`` per source, all at once), holds each kernel against its plain
+PyTorch version on the card, then drives the port's paths through its
+public API: ``PointFusion()`` (gradICP odometry, KNN association, exact
+full-arena fusion) and ``PointFusion(assoc='projective', assoc_window=...)``
+(projective association, capacity-windowed fusion):
 
   1. the card's name and power limit, and the kernel build;
   2. the KNN kernel against the plain version and a float64 oracle at the
      main path's shapes and at edge cases, with its time, the plain
      version's, ``torch.cdist``'s as a yardstick, and its bound;
   3. the golden clip (B=2, L=10, 120x160) against the reference goldens;
-  4. the ScanNet geometry (B=2, L=16, 240x320, a 1.23M-row arena).
+  4. the ScanNet geometry (B=2, L=16, 240x320, a 1.23M-row arena);
+  5. the per-pixel winner kernel against its plain version at the diag's
+     and the fusion paths' shapes, with crafted ties and edge cases, with
+     its time, the plain version's, ``scatter_reduce_``'s as a yardstick,
+     and its bound;
+  6. projective PointFusion on the golden clip (window 2*H*W) against the
+     clip's poses;
+  7. projective PointFusion at the ScanNet geometry (window 3*H*W, active
+     buffer 1.5*H*W, dense model rows) against the clip's poses.
 
-Any failed check raises. The line before the last is a JSON object with
-one entry per kernel; the last line is ``{"ok": true, "device": ...}``.
+Each path runs with every kernel's launch count set to 0 just before it and
+read just after: the KNN kernel 40 times per frame step on the KNN path and
+never on the projective one, the winner kernel once per fusion step on
+both. Any failed check raises. The line before the last is a JSON object
+with one entry per kernel; the last line is ``{"ok": true, "device": ...}``.
 Needs one card; exits non-zero without one.
 """
 
@@ -26,6 +39,7 @@ import pathlib
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -40,6 +54,11 @@ DATA = ROOT / "tests" / "data"
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12 / 2
 KNN_OPS_PER_PAIR = 8  # 3 sub, 3 mul, 2 add per (source, valid target) pair
+# SM clock cycles per second at the H100's 1.98 GHz boost: a sleep of this
+# many cycles lasts at least a second
+SLEEP_CYCLES_PER_S = 2_000_000_000
+INT64_MAX = 2**63 - 1
+INT32_MIN = -(2**31)
 
 
 def _log(msg: str) -> None:
@@ -47,11 +66,23 @@ def _log(msg: str) -> None:
 
 
 def _time_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Device time per call from CUDA events around ``reps`` calls."""
+    """Device time per call from CUDA events around ``reps`` calls.
+
+    The calls queue behind a sleep kernel that outlasts their dispatch on
+    the host, so the device runs them back to back and the events measure
+    the device's time, not the host's (a small kernel's wrapper takes
+    longer to call than the kernel takes to run).
+    """
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    queue_s = min(2.0, 2 * reps * (time.perf_counter() - t0) + 0.01)
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(queue_s * SLEEP_CYCLES_PER_S))
     start.record()
     for _ in range(reps):
         fn()
@@ -202,28 +233,61 @@ def _bilinear2x(x):
     return out.reshape(B, L, 2 * H, 2 * W, C)
 
 
-def _run_pointfusion(colors, depths, K, dev):
-    """``PointFusion()(RGBDImages(...))`` timed by the host clock around a
-    synchronized run; returns (pointclouds, poses, seconds, launches)."""
+def _kernels():
+    from gradslam_tpu_torch.ops import knn_kernel, winner_kernel
+
+    return {"knn": knn_kernel, "winner": winner_kernel}
+
+
+def _run_pointfusion(colors, depths, K, dev, **options):
+    """``PointFusion(**options)(RGBDImages(...))`` timed by the host clock
+    around a synchronized run, with every kernel's launch count set to 0
+    just before it; returns (pointclouds, poses, seconds, {kernel:
+    launches})."""
     from gradslam_tpu_torch import PointFusion, RGBDImages
-    from gradslam_tpu_torch.ops.knn import knn_kernel
 
     rgbd = RGBDImages(colors, depths, K, device=dev)
-    slam = PointFusion(device=dev)
+    slam = PointFusion(device=dev, **options)
     torch.cuda.synchronize()
-    knn_kernel.launches = 0
+    for k in _kernels().values():
+        k.launches = 0
     t0 = time.perf_counter()
     pcs, poses = slam(rgbd)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    return pcs, poses, seconds, knn_kernel.launches
+    return pcs, poses, seconds, {name: k.launches for name, k in _kernels().items()}
+
+
+def _check_launches(phase, launches, expected):
+    _check(launches == expected, f"{phase}: kernel launches {launches}, expected {expected}")
+
+
+def _scannet_clip(L):
+    """The golden clip, cycled to L, upsampled 2x to 240x320 (intrinsics
+    scaled with it): the repo's ScanNet geometry."""
+    colors, depths, K = _golden_clip(L)
+    K = K.copy()
+    K[:, :, :2] *= 2.0  # fx, fy, cx, cy scale with the upsample
+    return _bilinear2x(colors), _bilinear2x(depths), K
+
+
+def _cycled_poses(L):
+    gt = np.load(DATA / "msrd_b2s3" / "poses.npy").astype(np.float32)
+    return gt[:, [i % gt.shape[1] for i in range(L)]]
+
+
+def _pose_errors(poses, gt):
+    """(max translation error in m, max rotation error in degrees)."""
+    terr = np.linalg.norm(poses[..., :3, 3] - gt[..., :3, 3], axis=-1)
+    cos = (np.einsum("blij,blij->bl", poses[..., :3, :3], gt[..., :3, :3]) - 1.0) / 2.0
+    return float(terr.max()), float(np.degrees(np.arccos(np.clip(cos, -1, 1))).max())
 
 
 def golden_phase(dev):
     """PointFusion gradicp on the golden clip against the reference goldens."""
     B, L, H, W = 2, 10, 120, 160
     colors, depths, K = _golden_clip(L)
-    _run_pointfusion(colors[:, :2], depths[:, :2], K, dev)  # warm-up: load the kernel
+    _run_pointfusion(colors[:, :2], depths[:, :2], K, dev)  # warm-up: load the kernels
     pcs, poses, seconds, launches = _run_pointfusion(colors, depths, K, dev)
     g = np.load(DATA / "reference_goldens" / "pointfusion_gradicp.npz")
     p = poses.cpu().numpy()
@@ -231,21 +295,18 @@ def golden_phase(dev):
     pose_err = float(np.abs(p - g["poses"]).max())
     _log(f"golden B={B} L={L} {H}x{W}: {B * L / seconds:.3f} frames/s ({seconds:.3f} s), "
          f"max |pose - golden| {pose_err}, num_points {npts.tolist()} vs golden "
-         f"{g['num_points'].tolist()}, knn launches {launches}")
+         f"{g['num_points'].tolist()}, launches {launches}")
     _check(pose_err < 2e-3, f"golden poses off by {pose_err}")
     _check(bool(np.all(np.abs(npts - g["num_points"]) <= 0.05 * g["num_points"])),
            f"golden num_points {npts} vs {g['num_points']}")
-    _check(launches == (L - 1) * 40, f"golden run launched the knn kernel {launches} times")
+    _check_launches("golden", launches, {"knn": (L - 1) * 40, "winner": L})
     return p, launches
 
 
 def scannet_phase(dev, golden_poses):
     """PointFusion gradicp at the repo's ScanNet geometry (240x320, L=16)."""
     B, L, H, W = 2, 16, 240, 320
-    colors, depths, K = _golden_clip(L)
-    colors, depths = _bilinear2x(colors), _bilinear2x(depths)
-    K = K.copy()
-    K[:, :, :2] *= 2.0  # fx, fy, cx, cy scale with the upsample
+    colors, depths, K = _scannet_clip(L)
     torch.cuda.reset_peak_memory_stats()
     pcs, poses, seconds, launches = _run_pointfusion(colors, depths, K, dev)
     p = poses.cpu().numpy()
@@ -255,10 +316,185 @@ def scannet_phase(dev, golden_poses):
     _log(f"scannet B={B} L={L} {H}x{W} CAP={L * H * W}: {B * L / seconds:.3f} frames/s "
          f"({seconds:.3f} s), peak memory {torch.cuda.max_memory_allocated()} bytes, "
          f"num_points {npts.tolist()}, max |pose - golden-clip pose| {drift}, "
-         f"knn launches {launches}")
+         f"launches {launches}")
     _check(bool(np.isfinite(p).all()), "scannet poses are not finite")
-    _check(launches == (L - 1) * 40, f"scannet run launched the knn kernel {launches} times")
+    _check_launches("scannet", launches, {"knn": (L - 1) * 40, "winner": L})
     return launches
+
+
+# ---------------------------------------------------------------------------
+# 5. the per-pixel winner kernel against its plain version
+# ---------------------------------------------------------------------------
+
+# (name, B, N candidates, P pixels, sentinel): the diag's shapes, which are
+# also the exact fusion path's at the ScanNet geometry (N = A = 2*H*W), and
+# the other shapes the fusion paths give the kernel
+WINNER_SHAPES = (
+    ("exact golden", 2, 38_400, 19_200, 10 * 19_200),
+    ("exact scannet (diag shapes)", 2, 153_600, 76_800, 16 * 76_800),
+    ("projective golden (uncompacted view)", 2, 38_400, 19_200, 10 * 19_200),
+    ("projective scannet (gated buffer)", 2, 115_200, 76_800, 16 * 76_800),
+)
+
+
+def _library_winner(pix, k_hi, k_lo, slot, P, sentinel):
+    """The yardstick: the same function from ``scatter_reduce_``, two
+    rounds of an int64 ``amin`` with a gather-back between them (the
+    96-bit key does not fit one word). Never called by the port."""
+    p = torch.where((pix >= 0) & (pix < P), pix, P).long()
+    key = ((k_hi ^ INT32_MIN).long() << 32) | (k_lo.long() & 0xFFFFFFFF)
+    best = torch.full((pix.shape[0], P + 1), INT64_MAX, dtype=torch.int64, device=pix.device)
+    best.scatter_reduce_(1, p, key, reduce="amin")
+    tie = key == best.gather(1, p)
+    out = torch.full((pix.shape[0], P + 1), sentinel, dtype=torch.int32, device=pix.device)
+    out.scatter_reduce_(1, torch.where(tie, p, P), slot, reduce="amin")
+    return out[:, :P]
+
+
+def _library_rmw(pix, key, slot, P, sentinel):
+    """The yardstick of the ``pallas_rmw`` contract (keys in [0, 2^31),
+    pixels in range): one ``scatter_reduce_`` of ``key << 32 | slot``."""
+    best = torch.full((pix.shape[0], P), INT64_MAX, dtype=torch.int64, device=pix.device)
+    best.scatter_reduce_(1, pix.long(), (key.long() << 32) | slot.long(), reduce="amin")
+    return torch.where(best == INT64_MAX, sentinel, best & 0xFFFFFFFF).to(torch.int32)
+
+
+def _fusion_candidates(gen, B, N, P, CAP, dev, variant):
+    """Candidates as a fusion step gives them: a fifth dumped (pix = P, not
+    gated), distinct arena slots, and ties crafted per ``variant``."""
+    from gradslam_tpu_torch.ops import winner_keys
+
+    pix = gen.integers(0, P, (B, N)).astype(np.int32)
+    pix[gen.random((B, N)) < 0.2] = P
+    cc = gen.uniform(0.01, 30.0, (B, N)).astype(np.float32)
+    ray = gen.uniform(0.0, 0.0025, (B, N)).astype(np.float32)
+    if variant in ("ccount ties", "both ties"):
+        cc = gen.choice(np.array([0.5, 1.0, 1.5], np.float32), (B, N))
+    if variant in ("ray ties", "both ties"):
+        ray = gen.choice(np.array([0.0, 1e-4, 2e-4], np.float32), (B, N))
+    if variant == "+-0.0":
+        cc = gen.choice(np.array([0.0, -0.0, 1.0], np.float32), (B, N))
+        ray = gen.choice(np.array([0.0, -0.0, 1e-4], np.float32), (B, N))
+    slot = np.stack([gen.choice(CAP, N, replace=False) for _ in range(B)]).astype(np.int32)
+    k_hi, k_lo = winner_keys(torch.from_numpy(cc).to(dev), torch.from_numpy(ray).to(dev))
+    return torch.from_numpy(pix).to(dev), k_hi, k_lo, torch.from_numpy(slot).to(dev)
+
+
+def _winner_case(name, args, P, sentinel):
+    from gradslam_tpu_torch.ops import pixel_winner_reference, winner_kernel
+
+    got = winner_kernel(*args, P, sentinel)
+    ref = pixel_winner_reference(*args, P, sentinel)
+    torch.cuda.synchronize()
+    _check(torch.equal(got, ref), f"winner {name}: differs from the plain version")
+    _log(f"winner {name}: N={args[0].shape[1]} P={P}: equal to the plain version, "
+         f"{int((got != sentinel).sum())} pixels won")
+    return got
+
+
+def winner_phase(dev):
+    """Kernel vs plain version at the diag's and the fusion paths' shapes,
+    with crafted ties and edge cases; returns the kernel's JSON entry
+    (without ``launches``)."""
+    from gradslam_tpu_torch.ops import pixel_winner_reference, winner_kernel
+
+    gen = np.random.default_rng(0)
+    # the pallas_rmw contract at the diag's shapes: k_hi = key, k_lo = 0,
+    # slot = row, sentinel = N
+    B, A, HW = 2, 153_600, 76_800
+    rng = np.random.default_rng(0)
+    pix = torch.from_numpy(rng.integers(0, HW, size=(B, A)).astype(np.int32)).to(dev)
+    key = torch.from_numpy(rng.integers(0, 2**20, size=(B, A)).astype(np.int32)).to(dev)
+    zero = torch.zeros_like(key)
+    row = torch.arange(A, dtype=torch.int32, device=dev).expand(B, A).contiguous()
+    rmw_args = (pix, key, zero, row)
+    got = _winner_case("pallas_rmw contract (diag shapes)", rmw_args, HW, A)
+    _check(torch.equal(got, _library_rmw(pix, key, row, HW, A)), "winner: scatter_reduce_ yardstick differs")
+
+    timed = {}
+    for name, B, N, P, CAP in WINNER_SHAPES:
+        for variant in ("random", "ccount ties", "ray ties", "both ties", "+-0.0"):
+            args = _fusion_candidates(gen, B, N, P, CAP, dev, variant)
+            got = _winner_case(f"{name}, {variant}", args, P, CAP)
+        _check(torch.equal(got, _library_winner(*args, P, CAP)), "winner: scatter_reduce_ yardstick differs")
+        timed[name] = (args, P, CAP)
+    name, B, N, P, CAP = WINNER_SHAPES[1]
+    args = _fusion_candidates(gen, B, N, P, CAP, dev, "random")
+    dumped = torch.full_like(args[0], P)
+    got = _winner_case("all candidates dumped", (dumped, *args[1:]), P, CAP)
+    _check(bool((got == CAP).all()), "winner all dumped: not the sentinel everywhere")
+    one = torch.full_like(args[0], 4321)
+    got = _winner_case("one pixel takes every candidate", (one, *args[1:]), P, CAP)
+    _check(int((got != CAP).sum()) == B, "winner one pixel: not one winner per batch entry")
+
+    timed["pallas_rmw contract (diag shapes)"] = (rmw_args, HW, A)
+    timings = {}
+    for name, (args, P, CAP) in timed.items():
+        B, N = args[0].shape
+        ms = _time_ms(lambda: winner_kernel(*args, P, CAP), reps=100)
+        plain_ms = _time_ms(lambda: pixel_winner_reference(*args, P, CAP), reps=20)
+        if name.startswith("pallas_rmw"):
+            library_ms = _time_ms(lambda: _library_rmw(args[0], args[1], args[3], P, CAP), reps=20)
+        else:
+            library_ms = _time_ms(lambda: _library_winner(*args, P, CAP), reps=20)
+        # the function's bytes: four int32 inputs read once, the int32 table
+        # written once; the two-pass design also reads pix, k_hi and k_lo
+        # again and writes and reads the 8-byte key table
+        nbytes = B * N * 4 * 4 + B * P * 4
+        design_bytes = B * N * (12 + 16) + B * P * (8 + 8 + 4)
+        bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        timings[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                             bound_by="bytes", two_pass_bytes_ms=1e3 * design_bytes / HBM_BYTES_PER_S)
+        _log(f"winner timing {name} B={B} N={N} P={P}: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
+             f"scatter_reduce_ {library_ms:.6f} ms, bound {bound_ms:.6f} ms (bytes), "
+             f"two-pass bytes {1e3 * design_bytes / HBM_BYTES_PER_S:.6f} ms")
+    entry = dict(
+        name="pixel_winner",
+        route="cuda",
+        source="gradslam_tpu_torch/csrc/winner.cu",
+        replaces="tools/diag_winner_radix.py:110",
+        max_abs_err=0,
+        **timings[WINNER_SHAPES[1][0]],
+        shape="B=2 N=153600 P=76800 (the diag's shapes, fusion key)",
+    )
+    return entry
+
+
+# ---------------------------------------------------------------------------
+# 6./7. projective PointFusion
+# ---------------------------------------------------------------------------
+
+
+def projective_phase(dev, name, colors, depths, K, window, tol_m, tol_deg=None, **options):
+    """``PointFusion(assoc='projective', assoc_window=window, **options)``
+    against the clip's cycled poses, with the window overflow guard."""
+    B, L, H, W = colors.shape[:4]
+    torch.cuda.reset_peak_memory_stats()
+    pcs, poses, seconds, launches = _run_pointfusion(
+        colors, depths, K, dev, assoc="projective", assoc_window=window, **options
+    )
+    p = poses.cpu().numpy()
+    npts = pcs.num_points_per_pointcloud.cpu().numpy()
+    terr, rerr = _pose_errors(p, _cycled_poses(L))
+    _log(f"projective {name} B={B} L={L} {H}x{W} CAP={L * H * W} window={window} {options}: "
+         f"{B * L / seconds:.3f} frames/s ({seconds:.3f} s), peak memory "
+         f"{torch.cuda.max_memory_allocated()} bytes, num_points {npts.tolist()}, max translation "
+         f"error {terr} m, max rotation error {rerr} deg, launches {launches}")
+    _check(int(npts.max()) <= window, f"projective {name}: the map outgrew the window ({npts})")
+    _check(terr < tol_m, f"projective {name}: translation off by {terr} m")
+    if tol_deg is not None:
+        _check(rerr < tol_deg, f"projective {name}: rotation off by {rerr} deg")
+    _check_launches(f"projective {name}", launches, {"knn": 0, "winner": L})
+    return launches
+
+
+def _build_kernels():
+    """Builds every kernel's source at once (one nvcc each) and loads them."""
+    kernels = _kernels()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(kernels)) as ex:
+        list(ex.map(lambda k: k.load(), kernels.values()))
+    _log(f"built {', '.join(k.source for k in kernels.values())} in {time.perf_counter() - t0:.3f} s")
 
 
 def main() -> int:
@@ -266,7 +502,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from gradslam_tpu_torch.ops.knn import knn_kernel
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -274,14 +509,27 @@ def main() -> int:
     ).stdout.strip()
     _log(smi)
     dev = torch.device("cuda", 0)
-    t0 = time.perf_counter()
-    knn_kernel.load()  # builds csrc/knn.cu with nvcc
-    _log(f"built {knn_kernel.source} in {time.perf_counter() - t0:.3f} s")
+    _build_kernels()
 
-    entry = knn_phase(dev)
-    golden_poses, _ = golden_phase(dev)
-    entry["launches"] = scannet_phase(dev, golden_poses)
-    print(json.dumps({"kernels": [entry]}))
+    entries = {"knn": knn_phase(dev), "winner": winner_phase(dev)}
+    by_path = {}
+    golden_poses, by_path["golden"] = golden_phase(dev)
+    by_path["scannet"] = scannet_phase(dev, golden_poses)
+    H, W = 120, 160
+    colors, depths, K = _golden_clip(10)
+    by_path["projective golden"] = projective_phase(dev, "golden", colors, depths, K, 2 * H * W, 0.02, 2.0)
+    H, W = 240, 320
+    colors, depths, K = _scannet_clip(16)
+    by_path["projective scannet"] = projective_phase(
+        dev, "scannet", colors, depths, K, 3 * H * W, 0.01, active_capacity=(3 * H * W) // 2
+    )
+    for name, entry in entries.items():
+        # launches: the ScanNet geometry's run of the path each kernel is
+        # timed for; every path's count beside it
+        entry["launches"] = by_path["scannet" if name == "knn" else "projective scannet"][name]
+        entry["launches_by_path"] = {path: counts[name] for path, counts in by_path.items()}
+    _log(f"{smi}")
+    print(json.dumps({"kernels": list(entries.values())}))
     print(json.dumps({
         "ok": True,
         "device": {

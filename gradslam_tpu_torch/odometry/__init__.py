@@ -2,9 +2,12 @@ from .icputils import (
     FramePoints,
     frame_points_from_maps,
     gauss_newton_solve,
+    gauss_newton_solve_projective,
     huber_weights,
     point_to_plane_ICP,
+    point_to_plane_ICP_projective,
     point_to_plane_gradICP,
+    point_to_plane_gradICP_projective,
     solve_linear_system,
 )
 
@@ -12,8 +15,11 @@ __all__ = [
     "FramePoints",
     "solve_linear_system",
     "gauss_newton_solve",
+    "gauss_newton_solve_projective",
     "huber_weights",
     "point_to_plane_ICP",
     "point_to_plane_gradICP",
+    "point_to_plane_ICP_projective",
+    "point_to_plane_gradICP_projective",
     "frame_points_from_maps",
 ]

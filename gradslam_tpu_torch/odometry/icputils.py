@@ -1,11 +1,12 @@
-"""Differentiable point-to-plane ICP (PyTorch port of the KNN-association
-path of gradslam_tpu.odometry.icputils).
+"""Differentiable point-to-plane ICP (PyTorch port of
+gradslam_tpu.odometry.icputils: the KNN and the projective association).
 
 Everything is batched over B. The iteration loop is a Python loop with no
 host sync: classic LM's accept/reject is a ``where`` gate and gradLM is
 smooth by design. Row filtering is a weight mask, so filtered rows add
 zero to the normal equations. Data association is :func:`ops.knn.knn`,
-the Hopper kernel on the card.
+the Hopper kernel on the card, or the projective lookup of a per-pixel
+model image (O(S) per iteration, no kernel of its own).
 
 Every small product here is a broadcast multiply-and-sum, so it runs in
 full float32 whatever ``torch.backends.cuda.matmul.allow_tf32`` says.
@@ -18,16 +19,19 @@ from typing import NamedTuple, Optional, Union
 import torch
 
 from ..geometry import se3_exp, transform_pointcloud
-from ..geometry.projutils import matmul_small
+from ..geometry.projutils import matmul_small, project_points_to_pixels
 from ..ops.knn import KnnTargets, knn, prepare_targets
 
 __all__ = [
     "FramePoints",
     "solve_linear_system",
     "gauss_newton_solve",
+    "gauss_newton_solve_projective",
     "huber_weights",
     "point_to_plane_ICP",
     "point_to_plane_gradICP",
+    "point_to_plane_ICP_projective",
+    "point_to_plane_gradICP_projective",
     "frame_points_from_maps",
 ]
 
@@ -111,6 +115,52 @@ def gauss_newton_solve(
     rows = torch.gather(tgt_packed, 1, idx.long()[..., None].expand(-1, -1, 6))
     A, b, w = _point_to_plane_rows(src_pc, rows[..., 0:3], rows[..., 3:6], w, robust_delta)
     return A, b, w, idx
+
+
+def gauss_newton_solve_projective(
+    src_pc: torch.Tensor,
+    tgt_img: torch.Tensor,
+    view_pose: torch.Tensor,
+    intrinsics: torch.Tensor,
+    H: int,
+    W: int,
+    dist_thresh: Optional[float] = None,
+    src_valid: Optional[torch.Tensor] = None,
+    robust_delta: Optional[float] = None,
+):
+    """One Gauss-Newton linearization with projective data association.
+
+    Each source point is associated with the model row stored at its pixel
+    in the ``view_pose`` camera (the projective ICP of KinectFusion and
+    point-based fusion): one projection and one row gather per point.
+
+    Args:
+        src_pc: (B, S, 3) world-frame source points.
+        tgt_img: (B, H*W, 7) per-pixel model rows ``[x, y, z, nx, ny, nz,
+            valid]`` in the world frame.
+        view_pose: (B, 4, 4) pose the model image was made at.
+        intrinsics: (B, 4, 4) or (B, 1, 4, 4).
+        dist_thresh / src_valid / robust_delta: as in
+            :func:`gauss_newton_solve`.
+
+    Returns:
+        (A (B, S, 6), b (B, S, 1), weights (B, S), pix (B, S) int32): the
+        weight is the in-frame mask times the row's valid channel times the
+        gates. The association does not take part in the gradient.
+    """
+    B_, S = src_pc.shape[0], src_pc.shape[1]
+    live = torch.ones((B_, S), dtype=torch.bool, device=src_pc.device)
+    h, w_, inb = project_points_to_pixels(src_pc.detach(), live, view_pose, intrinsics, H, W)
+    pix = h * W + w_
+    rows = torch.gather(tgt_img, 1, pix.long()[..., None].expand(-1, -1, tgt_img.shape[-1]))
+    assoc_pts, assoc_n = rows[..., 0:3], rows[..., 3:6]
+    w = inb.to(src_pc.dtype) * rows[..., 6]
+    if dist_thresh is not None:
+        w = w * (((assoc_pts - src_pc) ** 2).sum(-1) < dist_thresh)
+    if src_valid is not None:
+        w = w * src_valid
+    A, b, w = _point_to_plane_rows(src_pc, assoc_pts, assoc_n, w, robust_delta)
+    return A, b, w, pix
 
 
 def _point_to_plane_rows(src_pc, assoc_pts, assoc_n, w, robust_delta=None):
@@ -254,6 +304,59 @@ def point_to_plane_gradICP(
         (B, 4, 4) transforms aligning src to tgt.
     """
     solve_fn = _knn_solver(tgt_pc, tgt_normals, dist_thresh, src_valid, tgt_valid, robust_delta)
+    return _gradicp_loop(
+        solve_fn, src_pc, initial_transform, numiters, damp, lambda_max, B, B2, nu
+    )
+
+
+def _projective_solver(tgt_img, view_pose, intrinsics, H, W, dist_thresh, src_valid, robust_delta):
+    return lambda src: gauss_newton_solve_projective(
+        src, tgt_img, view_pose, intrinsics, H, W, dist_thresh, src_valid, robust_delta
+    )
+
+
+def point_to_plane_ICP_projective(
+    src_pc: torch.Tensor,
+    tgt_img: torch.Tensor,
+    view_pose: torch.Tensor,
+    intrinsics: torch.Tensor,
+    H: int,
+    W: int,
+    initial_transform: Optional[torch.Tensor] = None,
+    numiters: int = 20,
+    damp: float = 1e-8,
+    dist_thresh: Optional[float] = None,
+    src_valid: Optional[torch.Tensor] = None,
+    robust_delta: Optional[float] = None,
+) -> torch.Tensor:
+    """Classic point-to-plane ICP with projective association against the
+    (B, H*W, 7) model image ``tgt_img`` made at ``view_pose`` (see
+    :func:`gauss_newton_solve_projective`)."""
+    solve_fn = _projective_solver(tgt_img, view_pose, intrinsics, H, W, dist_thresh, src_valid, robust_delta)
+    return _icp_loop(solve_fn, src_pc, initial_transform, numiters, damp)
+
+
+def point_to_plane_gradICP_projective(
+    src_pc: torch.Tensor,
+    tgt_img: torch.Tensor,
+    view_pose: torch.Tensor,
+    intrinsics: torch.Tensor,
+    H: int,
+    W: int,
+    initial_transform: Optional[torch.Tensor] = None,
+    numiters: int = 20,
+    damp: float = 1e-8,
+    dist_thresh: Optional[float] = None,
+    lambda_max: float = 2.0,
+    B: float = 1.0,
+    B2: float = 1.0,
+    nu: float = 200.0,
+    src_valid: Optional[torch.Tensor] = None,
+    robust_delta: Optional[float] = None,
+) -> torch.Tensor:
+    """GradLM point-to-plane ICP with projective association (see
+    :func:`point_to_plane_ICP_projective`)."""
+    solve_fn = _projective_solver(tgt_img, view_pose, intrinsics, H, W, dist_thresh, src_valid, robust_delta)
     return _gradicp_loop(
         solve_fn, src_pc, initial_transform, numiters, damp, lambda_max, B, B2, nu
     )

@@ -1,5 +1,12 @@
 from .knn import KnnTargets, knn, knn_kernel, knn_reference, prepare_targets
 from .masking import compact_masked
+from .winner import (
+    pixel_winner,
+    pixel_winner_reference,
+    winner_keys,
+    winner_kernel,
+    winner_order_keys,
+)
 
 __all__ = [
     "knn",
@@ -8,4 +15,9 @@ __all__ = [
     "prepare_targets",
     "KnnTargets",
     "compact_masked",
+    "pixel_winner",
+    "pixel_winner_reference",
+    "winner_kernel",
+    "winner_keys",
+    "winner_order_keys",
 ]

@@ -1,0 +1,176 @@
+"""Per-pixel fusion winner selection.
+
+Every fusion step keeps one map row per pixel: among the candidate rows
+that project to a pixel and pass the gates, the one with the largest
+confidence count, then the smallest ray distance, then the smallest slot
+(the reference's ``torch.unique`` row sort). The JAX package picks it with a
+4-key ``lax.sort``; its bucket form, a read-modify-write min into a per-pixel
+table, is ``tools/diag_winner_radix.py::pallas_rmw``, which Mosaic never
+lowered on the TPU.
+
+On a CUDA tensor :func:`pixel_winner` launches the hand-written Hopper
+kernel in ``csrc/winner.cu`` (two passes of 64- and 32-bit ``atomicMin``
+into per-pixel tables); on a CPU tensor it runs
+:func:`pixel_winner_reference`, the sort form of the same function. There
+is no fallback between the two: a CUDA input that the kernel does not take
+raises. The result is exact on both.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+__all__ = [
+    "winner_keys",
+    "winner_order_keys",
+    "pixel_winner",
+    "pixel_winner_reference",
+    "winner_kernel",
+]
+
+_INT32_MIN = -(2**31)
+
+
+def _ordered_int32(x: torch.Tensor) -> torch.Tensor:
+    """Maps float32 to int32 keys in the same signed order (-0.0 equal to 0.0)."""
+    bits = (x + 0.0).view(torch.int32)
+    return torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+
+
+def winner_keys(ccount: torch.Tensor, ray: torch.Tensor):
+    """The fusion priority as two int32 words in unsigned order.
+
+    ``k_hi`` is the image of ``-ccount`` and ``k_lo`` that of ``ray``: for
+    float32 inputs (no NaN), comparing the words as unsigned 32-bit integers
+    orders them as the floats, with ``-0.0`` equal to ``0.0``.
+
+    Returns:
+        (k_hi, k_lo): int32 tensors of the inputs' shape.
+    """
+    return _ordered_int32(-ccount) ^ _INT32_MIN, _ordered_int32(ray) ^ _INT32_MIN
+
+
+def _u32(k: torch.Tensor) -> torch.Tensor:
+    """int32 bits -> their unsigned value as int64."""
+    return k.to(torch.int64) & 0xFFFFFFFF
+
+
+def winner_order_keys(pix, k_hi, k_lo, slot):
+    """Permutation sorting (B, N) rows by ``(pix, k_hi, k_lo, slot)``
+    ascending, the keys compared as unsigned words.
+
+    The JAX package does this with one 4-key ``lax.sort``. Here the keys are
+    packed into two int64 words, ``(pix, k_hi)`` and ``(k_lo, slot)``, and two
+    stable sorts run from the last word to the first, which gives the same
+    lexicographic order. ``pix`` and ``slot`` lie in ``[0, 2^31)``.
+    """
+    hi = (pix.to(torch.int64) << 32) | _u32(k_hi)
+    lo = ((k_lo ^ _INT32_MIN).to(torch.int64) << 32) | slot.to(torch.int64)
+    order = torch.sort(lo, dim=1, stable=True).indices
+    return torch.gather(order, 1, torch.sort(torch.gather(hi, 1, order), dim=1, stable=True).indices)
+
+
+def pixel_winner_reference(pix, k_hi, k_lo, slot, num_pixels: int, sentinel: int):
+    """Plain-PyTorch winner per pixel: the sort form of :func:`pixel_winner`.
+
+    Sorts the candidates by ``(pix, k_hi, k_lo, slot)``, keeps the first of
+    each pixel's run and scatters its slot into a per-pixel table.
+    """
+    B = pix.shape[0]
+    P = num_pixels
+    pix = torch.where((pix >= 0) & (pix < P), pix, P)
+    table = torch.full((B, P + 1), sentinel, dtype=torch.int32, device=pix.device)
+    order = winner_order_keys(pix, k_hi, k_lo, slot)
+    pix_sorted = torch.gather(pix, 1, order)
+    slot_sorted = torch.gather(slot.to(torch.int32), 1, order)
+    first = torch.ones_like(pix_sorted, dtype=torch.bool)
+    first[:, 1:] = pix_sorted[:, 1:] != pix_sorted[:, :-1]
+    dest = torch.where(first & (pix_sorted < P), pix_sorted, P).long()
+    return table.scatter(1, dest, slot_sorted)[:, :P]
+
+
+class _WinnerKernel:
+    """The CUDA kernel's wrapper: builds ``csrc/winner.cu`` at first use,
+    checks its inputs, launches it on the current stream and counts its
+    launches (one per selection) in :attr:`launches`."""
+
+    source = "winner.cu"
+
+    def __init__(self):
+        self.launches = 0
+        self._fn = None
+
+    def load(self):
+        """Loads the kernel's library, building it first if needed."""
+        if self._fn is None:
+            from ..utils.cuda_build import build
+
+            lib = ctypes.CDLL(str(build(self.source)))
+            fn = lib.gst_pixel_winner
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            self._lib, self._fn = lib, fn
+        return self._fn
+
+    def __call__(self, pix, k_hi, k_lo, slot, num_pixels: int, sentinel: int):
+        """(B, N) int32 contiguous CUDA tensors on one device ->
+        (B, num_pixels) int32 winner slots."""
+        ins = (pix, k_hi, k_lo, slot)
+        dev = pix.device
+        if not all(t.is_cuda and t.device == dev for t in ins):
+            raise ValueError("winner kernel: inputs must be on one CUDA device")
+        if any(t.dtype != torch.int32 for t in ins):
+            raise TypeError(f"winner kernel takes int32, got {[t.dtype for t in ins]}")
+        if pix.dim() != 2 or any(t.shape != pix.shape for t in ins):
+            raise ValueError(f"winner kernel: four (B, N) inputs, got {[tuple(t.shape) for t in ins]}")
+        if not all(t.is_contiguous() for t in ins):
+            raise ValueError("winner kernel: inputs must be contiguous")
+        B, N = pix.shape
+        P = int(num_pixels)
+        if P < 0 or B * max(N, P) >= 2**31 or not -(2**31) <= sentinel < 2**31:
+            raise ValueError(f"winner kernel: sizes out of range (B={B}, N={N}, P={P})")
+        fn = self.load()
+        out = torch.empty((B, P), dtype=torch.int32, device=dev)
+        best = torch.empty((B, P), dtype=torch.int64, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = fn(
+                pix.data_ptr(), k_hi.data_ptr(), k_lo.data_ptr(), slot.data_ptr(),
+                best.data_ptr(), out.data_ptr(), B, N, P, int(sentinel), stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"winner kernel launch failed: cudaError {err}")
+        self.launches += 1
+        return out
+
+
+winner_kernel = _WinnerKernel()
+
+
+def pixel_winner(pix, k_hi, k_lo, slot, num_pixels: int, sentinel: int) -> torch.Tensor:
+    """The winning candidate's slot per pixel.
+
+    Args:
+        pix: (B, N) int32 pixel of each candidate; outside
+            ``[0, num_pixels)`` it never wins.
+        k_hi, k_lo: (B, N) int32 priority words, compared as unsigned
+            (:func:`winner_keys` builds them from the fusion's ccount and ray
+            distance).
+        slot: (B, N) int32 in ``[0, sentinel)``: the value returned for a
+            winner, and the last tie-break.
+        num_pixels: P.
+        sentinel: the value where a pixel has no candidate.
+
+    Returns:
+        (B, P) int32: the ``slot`` of the candidate with the smallest
+        ``(k_hi, k_lo, slot)`` at each pixel, ``sentinel`` where none. A CUDA
+        ``pix`` runs the Hopper kernel; a CPU one runs
+        :func:`pixel_winner_reference`.
+    """
+    if pix.is_cuda:
+        return winner_kernel(
+            *(t.contiguous() for t in (pix, k_hi, k_lo, slot)), num_pixels, sentinel
+        )
+    return pixel_winner_reference(pix, k_hi, k_lo, slot, num_pixels, sentinel)

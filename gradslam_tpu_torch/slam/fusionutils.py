@@ -1,12 +1,17 @@
-"""PointFusion association and fusion (PyTorch port of the exact path of
-gradslam_tpu.slam.fusionutils).
+"""PointFusion association and fusion (PyTorch port of
+gradslam_tpu.slam.fusionutils: the exact path and the capacity-windowed
+paths).
 
-Association state is dense and of fixed size: the map points active in the
-live frame are compacted into an ``active_capacity`` buffer, one winner per
-pixel is picked by a multi-key sort (max ccount, then min ray distance,
-then min arena slot, as the reference's ``torch.unique`` row sort does),
-winners get a confidence-weighted merge written back with one row scatter,
-and every other valid pixel is appended to the arena.
+Association state is dense and of fixed size: the map rows active in the
+live frame are compacted into an ``active_capacity`` buffer (or, with a
+capacity window, the arena prefix is associated directly), one winner per
+pixel is picked by :func:`ops.winner.pixel_winner` (max ccount, then min ray
+distance, then min arena slot, as the reference's ``torch.unique`` row sort
+does), winners get a confidence-weighted merge, and every other valid pixel
+is appended to the arena.
+
+The winner table is indexed by pixel, so it is the winner part of the model
+image, and the merge reads the frame attributes at the table's own pixel.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import torch
 
 from ..geometry import project_points_to_pixels
 from ..ops.masking import compact_masked
+from ..ops.winner import pixel_winner, winner_keys
 from ..structures.maparena import (
     MapState,
     append_rows_to_map,
@@ -31,7 +37,6 @@ __all__ = [
     "are_normals_similar",
     "fusion_update_compact",
     "aggregate_map_dense",
-    "winner_order",
 ]
 
 
@@ -64,28 +69,176 @@ def _project_points_to_frame(points, live, pose, intrinsics, H, W):
     return project_points_to_pixels(points, live, pose, intrinsics, H, W)
 
 
-def _ordered_int(x: torch.Tensor) -> torch.Tensor:
-    """Maps float32 to int64 keys in the same order (-0.0 equal to 0.0)."""
-    bits = (x + 0.0).view(torch.int32).to(torch.int64)
-    return torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+def _resolve_model_rows(mode: str, H: int, W: int, capacity: int) -> bool:
+    """Resolves the ``model_rows`` option: True builds the projective
+    odometry's target rows densely at fusion time ('dense'), False gathers
+    the arena at the model image ('gather'); 'auto' is dense once the arena
+    outgrows ``12*H*W`` rows, the JAX package's crossover."""
+    if mode == "dense":
+        return True
+    if mode == "gather":
+        return False
+    if mode != "auto":
+        raise ValueError(f"model_rows must be 'dense', 'gather' or 'auto', got {mode!r}")
+    return capacity > 12 * H * W
 
 
-def winner_order(pix: torch.Tensor, ccount: torch.Tensor, ray: torch.Tensor, slot: torch.Tensor):
-    """Permutation sorting rows by ``(pix, -ccount, ray, slot)`` ascending.
+def _resolve_assoc_window(assoc_window, capacity: int):
+    """Resolves the ``assoc_window`` option: None (off) for ``<= 0`` or a
+    window no smaller than the arena, else the number of prefix rows.
 
-    The JAX package does this with one 4-key ``lax.sort``. Here the keys are
-    packed into two int64 words, ``(pix, -ccount)`` and ``(ray, slot)``,
-    and two stable sorts run from the last word to the first, which gives
-    the same lexicographic order.
-
-    Args:
-        pix: (B, A) int32 pixel keys (< 2^31); ccount, ray: (B, A) float32
-            (``ray >= 0``); slot: (B, A) int32 arena slots (>= 0).
+    Live rows are the contiguous prefix ``[0, num_points)``, so association
+    can run on ``data[:, :assoc_window]``. Rows at slots ``>= assoc_window``
+    are left out of association (not merged; their pixels may append a
+    duplicate), as with ``active_capacity`` overflow.
     """
-    hi = (pix.to(torch.int64) << 32) | (_ordered_int(-ccount) + 2**31)
-    lo = (_ordered_int(ray) << 32) | slot.to(torch.int64)
-    order = torch.sort(lo, dim=1, stable=True).indices
-    return torch.gather(order, 1, torch.sort(torch.gather(hi, 1, order), dim=1, stable=True).indices)
+    if assoc_window is None or assoc_window <= 0:
+        return None
+    return assoc_window if assoc_window < capacity else None
+
+
+def _take(x, idx):
+    return torch.gather(x, 1, idx.long()[..., None].expand(-1, -1, x.shape[-1]))
+
+
+def _merge_rows(rows, fa, alpha):
+    """Confidence-weighted merge ``(c*m + a*f) / (c + a)`` of (..., 12) map
+    rows with (..., 10) frame attributes at weight ``alpha`` (..., 1)."""
+    cc = rows[..., 9:10]
+    cc_new = cc + alpha
+    inv = 1.0 / torch.where(cc_new == 0, torch.ones_like(cc_new), cc_new)
+    return torch.cat(
+        [
+            (cc * rows[..., 0:3] + alpha * fa[..., 0:3]) * inv,
+            (cc * rows[..., 3:6] + alpha * fa[..., 3:6]) * inv,
+            (cc * rows[..., 6:9] + alpha * fa[..., 6:9]) * inv,
+            cc_new,
+            rows[..., 10:12],
+        ],
+        dim=-1,
+    )
+
+
+def _winner_slots(view, live, frame_attr, pose, intrinsics, dist_th, dot_th, H, W, A, CAP, compact):
+    """Projective association and winner selection against a map view (the
+    arena or its prefix window; view row == arena slot).
+
+    ``compact`` compacts the active rows into the (B, A) buffer first;
+    without it the view rows are the candidates (a window no larger than
+    the buffer).
+
+    Returns:
+        (arena_slot, avalid, wslots): the (B, A) compacted slots and
+        validity (or the view's, uncompacted) and the (B, H*W) winner slot
+        at each pixel, CAP where none.
+    """
+    B, NA, _ = view.shape
+    HW = H * W
+    h, w, active = _project_points_to_frame(view[..., 0:3], live, pose, intrinsics, H, W)
+    if compact:
+        arena_slot, avalid = compact_masked(active, A)
+        ma = _take(view, arena_slot)
+        # the pixel again from the gathered rows: the same math on the same
+        # values as the projection above
+        ha, wa, _ = _project_points_to_frame(ma[..., 0:3], torch.ones_like(avalid), pose, intrinsics, H, W)
+        pixa = ha * W + wa
+    else:
+        ma = view
+        pixa = h * W + w
+        arena_slot = torch.arange(NA, dtype=torch.int32, device=view.device).expand(B, NA)
+        avalid = active
+    mp, mn = ma[..., 0:3], ma[..., 3:6]
+    fa = _take(frame_attr, pixa)
+    fp, fn = fa[..., 0:3], fa[..., 3:6]
+    gated = avalid & are_points_close(fp, mp, dist_th) & are_normals_similar(fn, mn, dot_th)
+    pix_seg = torch.where(gated, pixa, HW)
+    ray = ((mp - fp) ** 2).sum(-1)
+    wslots = pixel_winner(pix_seg, *winner_keys(ma[..., 9], ray), arena_slot, HW, CAP)
+    return arena_slot, avalid, wslots
+
+
+def _fusion_window_dense(map_state, view, live, frame_attr, valid_depth, pose, intrinsics,
+                         dist_th, dot_th, H, W, A, compact, return_active, dense_model_rows,
+                         need_active_set=True):
+    """Capacity-windowed fusion with the merge computed densely over the view.
+
+    Every view row computes the value it would get as a winner from its own
+    attributes and the frame's at its own pixel, and the winner mask
+    selects it: the same winners, appends and model image as the rows path,
+    merged floats to within rounding.
+
+    ``compact`` bounds the candidates to the (B, A) buffer: it holds the
+    active rows when the caller reuses them as odometry candidates
+    (``need_active_set``), else the gated rows, which are the only rows
+    that can win, so a full buffer drops nothing that could.
+    """
+    B, NT, _ = view.shape
+    CAP = map_state.capacity
+    HW = H * W
+    dev = view.device
+
+    h, w, active = _project_points_to_frame(view[..., 0:3], live, pose, intrinsics, H, W)
+    pix = h * W + w
+    fa = _take(frame_attr, pix)
+    fp, fn = fa[..., 0:3], fa[..., 3:6]
+    mp, mn = view[..., 0:3], view[..., 3:6]
+    gated = active & are_points_close(fp, mp, dist_th) & are_normals_similar(fn, mn, dot_th)
+    pix_seg = torch.where(gated, pix, HW)
+    k_hi, k_lo = winner_keys(view[..., 9], ((mp - fp) ** 2).sum(-1))
+    if compact:
+        arena_slot, avalid = compact_masked(active if need_active_set else gated, A)
+        idx = arena_slot.long()
+        k_pix = torch.where(avalid, pix_seg.gather(1, idx), HW)
+        k_hi, k_lo = k_hi.gather(1, idx), k_lo.gather(1, idx)
+        k_slot = arena_slot
+    else:
+        k_pix = pix_seg
+        arena_slot = k_slot = torch.arange(NT, dtype=torch.int32, device=dev).expand(B, NT)
+        avalid = active
+    model_img = pixel_winner(k_pix, k_hi, k_lo, k_slot, HW, CAP)  # winners only
+
+    # per-view-row winner mask: one scatter of ones at the table's slots
+    has_win = model_img < CAP
+    wmask = torch.zeros((B, NT + 1), dtype=torch.bool, device=dev)
+    wmask = wmask.scatter(1, torch.where(has_win, model_img, NT).long(), True)[:, :NT]
+
+    new_view = torch.where(wmask[..., None], _merge_rows(view, fa, fa[..., 9:10]), view)
+    data = torch.cat([new_view, map_state.data[:, NT:]], dim=1)
+    win_rows = None
+    if return_active and dense_model_rows:
+        win_rows = _take(new_view, torch.clamp(model_img, max=NT - 1))
+    return _append_frame(map_state, data, frame_attr, valid_depth, model_img, win_rows,
+                         return_active, arena_slot, avalid, dense_model_rows)
+
+
+def _append_frame(map_state, data, frame_attr, valid_depth, model_img, win_rows, return_active,
+                  arena_slot, avalid, dense_model_rows):
+    """Appends every valid pixel without a winner to the merged arena
+    ``data`` and builds the returned tuple.
+
+    ``model_img`` (B, H*W) holds the winner slot per pixel (CAP where none)
+    and ``win_rows`` (B, H*W, 12) the merged row there (read only for the
+    model rows).
+    """
+    B, HW, _ = frame_attr.shape
+    CAP = map_state.capacity
+    has_win = model_img < CAP
+    new_mask = valid_depth.reshape(B, HW) & ~has_win
+    frame_rows = torch.cat([frame_attr, frame_attr.new_zeros((B, HW, 2))], dim=-1)
+    out = append_rows_to_map(MapState(data, map_state.num_points), frame_rows, new_mask)
+    if not return_active:
+        return out
+    app_slot = map_state.num_points[:, None] + torch.cumsum(new_mask, dim=1, dtype=torch.int32) - 1
+    app_valid = new_mask & (app_slot < CAP)
+    img = torch.where(app_valid, app_slot, model_img)
+    if not dense_model_rows:
+        return out, (arena_slot, avalid, img)
+    # model rows: the arena row at each pixel's model slot, from the buffers
+    # in hand (winner pixels: the merged row; appended pixels: the frame row)
+    mr6 = torch.where(has_win[..., None], win_rows[..., 0:6], 0.0)
+    mr6 = torch.where(app_valid[..., None], frame_rows[..., 0:6], mr6)
+    tval = (has_win | app_valid).to(mr6.dtype)
+    return out, (arena_slot, avalid, img, torch.cat([mr6, tval[..., None]], dim=-1))
 
 
 def fusion_update_compact(
@@ -124,109 +277,68 @@ def fusion_update_compact(
             highest slots are left out of association for this frame.
         merge_window: accepted and ignored: the JAX package's window is a
             TPU layout form of the same row scatter, bitwise identical.
-        block_size, visible_capacity, frame_labels, assoc_window > 0,
-        dense_model_rows, window_merge, need_active_set: the spatial-block,
-            semantic-label, prefix-window and projective-odometry paths,
-            not ported yet; a value that selects one raises.
+        assoc_window: ``> 0`` associates against the arena prefix
+            ``data[:, :assoc_window]`` only (see :func:`_resolve_assoc_window`).
+        dense_model_rows: also return the (B, H*W, 7) model rows
+            ``[point(3), normal(3), valid(1)]``: the arena rows at the model
+            image, built from this step's buffers.
+        window_merge: the windowed path's merge, 'dense' (computed per view
+            row, :func:`_fusion_window_dense`) or 'rows' (per winner, written
+            back into the window); same winners and appends.
+        need_active_set: False when the caller does not reuse the returned
+            set as odometry candidates (projective odometry): the dense
+            window path then compacts gated rows instead of active rows.
+        block_size, visible_capacity, frame_labels: the spatial-block and
+            semantic-label paths, not ported yet; a value that selects one
+            raises.
 
     Returns:
         The new :class:`MapState`; with ``return_active`` also
         ``(arena_slot (B, A) int32, avalid (B, A) bool, model_img (B, H*W)
-        int32)``: the next frame's odometry candidates and the arena slot
-        fused at each pixel (CAP where none).
+        int32[, model_rows])``: the next frame's odometry candidates and the
+        arena slot fused at each pixel (CAP where none).
     """
+    if window_merge not in ("dense", "rows"):
+        raise ValueError(f"window_merge must be 'dense' or 'rows', got {window_merge!r}")
     if block_size is not None or visible_capacity is not None:
         raise NotImplementedError("fusion block gating waits for ROADMAP A8")
     if frame_labels is not None:
         raise NotImplementedError("semantic label fusion waits for ROADMAP A8")
-    if assoc_window is not None and assoc_window > 0:
-        raise NotImplementedError("assoc_window waits for ROADMAP A8")
-    if dense_model_rows:
-        raise NotImplementedError("dense model rows (projective odometry) wait for ROADMAP A8")
-    del merge_window, window_merge, need_active_set
+    del merge_window
     B, H, W, _ = frame_vertex_global.shape
     CAP = map_state.capacity
-    HW = H * W
     A = active_capacity
-    dev = map_state.data.device
-
     # packed frame attributes: gv(3) gn(3) rgb(3) alpha(1) -> one gather
     alpha_img = get_alpha(frame_vertex_local, sigma, keepdim=True)
     frame_attr = torch.cat(
         [frame_vertex_global, frame_normal_global, rgb_image, alpha_img], dim=-1
-    ).reshape(B, HW, 10)
+    ).reshape(B, H * W, 10)
 
-    def take(x, idx):
-        return torch.gather(x, 1, idx.long()[..., None].expand(-1, -1, x.shape[-1]))
-
-    # ---- association: active set, gates, one winner per pixel ----------
-    _, _, active = _project_points_to_frame(
-        map_state.points, map_mask(map_state), pose, intrinsics, H, W
+    win = _resolve_assoc_window(assoc_window, CAP)
+    if win is None:
+        view, live, compact = map_state.data, map_mask(map_state), True
+    else:
+        view = map_state.data[:, :win]
+        live = torch.arange(win, dtype=torch.int32, device=view.device)[None, :] < map_state.num_points[:, None]
+        compact = win > A
+        if window_merge == "dense":
+            return _fusion_window_dense(
+                map_state, view, live, frame_attr, valid_depth, pose, intrinsics, dist_th, dot_th,
+                H, W, A, compact, return_active, dense_model_rows, need_active_set,
+            )
+    arena_slot, avalid, wslots = _winner_slots(
+        view, live, frame_attr, pose, intrinsics, dist_th, dot_th, H, W, A, CAP, compact
     )
-    arena_slot, avalid = compact_masked(active, A)  # (B, A)
-    ma = take(map_state.data, arena_slot)  # (B, A, 12)
-    mp = ma[..., 0:3]
-    ha, wa, _ = _project_points_to_frame(mp, torch.ones_like(avalid), pose, intrinsics, H, W)
-    pixa = ha * W + wa
-    mn, mcc = ma[..., 3:6], ma[..., 9]
-    fa = take(frame_attr, pixa)
-    fp, fn = fa[..., 0:3], fa[..., 3:6]
-    gated = avalid & are_points_close(fp, mp, dist_th) & are_normals_similar(fn, mn, dot_th)
 
-    pix_seg = torch.where(gated, pixa, HW)
-    d = mp - fp
-    ray = (d**2).sum(-1)
-    order = winner_order(pix_seg, mcc, ray, arena_slot)
-    pix_sorted = torch.gather(pix_seg, 1, order)
-    slot_sorted = torch.gather(arena_slot, 1, order)
-    first = torch.ones_like(pix_sorted, dtype=torch.bool)
-    first[:, 1:] = pix_sorted[:, 1:] != pix_sorted[:, :-1]
-    winner_sorted = first & (pix_sorted < HW)
-
-    # winners are distinct pixels, so their rank is a collision-free
-    # address into an (H*W) buffer; non-winners go to a dump column
-    rank = torch.cumsum(winner_sorted, dim=1, dtype=torch.int32) - 1
-    dest = torch.where(winner_sorted, rank, HW).long()
-    wslots = torch.full((B, HW + 1), CAP, dtype=torch.int32, device=dev)
-    wslots = wslots.scatter(1, dest, slot_sorted)[:, :HW]  # CAP where none
-
-    # ---- merge: O(H*W) ---------------------------------------------------
+    # ---- merge: O(H*W), the winner at each pixel with that pixel's frame row
     wvalid = wslots < CAP
-    maw = take(map_state.data, torch.clamp(wslots, max=CAP - 1))
-    mpw, mnw, mcow, mccw = maw[..., 0:3], maw[..., 3:6], maw[..., 6:9], maw[..., 9:10]
-    hw_w, ww_w, _ = _project_points_to_frame(mpw, wvalid, pose, intrinsics, H, W)
-    pixw = hw_w * W + ww_w
-    faw = take(frame_attr, torch.where(wvalid, pixw, 0))
-    fpw, fnw, fcw = faw[..., 0:3], faw[..., 3:6], faw[..., 6:9]
-
-    model_img = torch.full((B, HW + 1), CAP, dtype=torch.int32, device=dev)
-    model_img = model_img.scatter(1, torch.where(wvalid, pixw, HW).long(), wslots)[:, :HW]
-
-    alpha = torch.where(wvalid[..., None], faw[..., 9:10], 0.0)
-    cc_new = mccw + alpha
-    inv = 1.0 / torch.where(cc_new == 0, torch.ones_like(cc_new), cc_new)
-    mrows = torch.cat(
-        [
-            (mccw * mpw + alpha * fpw) * inv,
-            (mccw * mnw + alpha * fnw) * inv,
-            (mccw * mcow + alpha * fcw) * inv,
-            cc_new,
-            maw[..., 10:12],
-        ],
-        dim=-1,
-    )
-    data = scatter_rows(map_state.data, wslots, mrows, wvalid)
-
-    # ---- append every valid pixel without a winner -----------------------
-    new_mask = valid_depth.reshape(B, HW) & (model_img >= CAP)
-    frame_rows = torch.cat([frame_attr, frame_attr.new_zeros((B, HW, 2))], dim=-1)
-    out = append_rows_to_map(MapState(data, map_state.num_points), frame_rows, new_mask)
-    if not return_active:
-        return out
-    app_slot = map_state.num_points[:, None] + torch.cumsum(new_mask, dim=1, dtype=torch.int32) - 1
-    app_valid = new_mask & (app_slot < CAP)
-    model_img = torch.where(app_valid, app_slot, model_img)
-    return out, (arena_slot, avalid, model_img)
+    alpha = torch.where(wvalid[..., None], frame_attr[..., 9:10], 0.0)
+    mrows = _merge_rows(_take(view, torch.clamp(wslots, max=view.shape[1] - 1)), frame_attr, alpha)
+    data = scatter_rows(view, wslots, mrows, wvalid)  # winner slots are distinct
+    if win is not None:  # the writeback stays inside the window
+        data = torch.cat([data, map_state.data[:, win:]], dim=1)
+    return _append_frame(map_state, data, frame_attr, valid_depth, wslots, mrows,
+                         return_active, arena_slot, avalid, dense_model_rows)
 
 
 def aggregate_map_dense(

@@ -8,7 +8,9 @@ the card runs ahead of it.
   - Localization projects the live map (or the candidate rows carried from
     the previous fusion step) into the previous frame, keeps the points on
     the ``dsratio`` pixel grid, compacts them into a fixed-size target
-    buffer and runs the batched gradICP / ICP solver with the KNN kernel.
+    buffer and runs the batched gradICP / ICP solver with the KNN kernel;
+    with ``assoc='projective'`` it instead associates each source point
+    with the model image that the previous fusion step left at its pixel.
   - Mapping is the PointFusion update (or the append-only aggregate) of
     the fixed-capacity arena.
 """
@@ -22,7 +24,12 @@ import numpy as np
 import torch
 
 from ..geometry import compose_transformations
-from ..odometry.icputils import point_to_plane_ICP, point_to_plane_gradICP
+from ..odometry.icputils import (
+    point_to_plane_ICP,
+    point_to_plane_ICP_projective,
+    point_to_plane_gradICP,
+    point_to_plane_gradICP_projective,
+)
 from ..ops.masking import compact_masked
 from ..structures.maparena import MapState, init_map, map_mask, map_to_pointclouds
 from ..structures.rgbdimages import (
@@ -33,7 +40,13 @@ from ..structures.rgbdimages import (
     compute_vertex_map,
 )
 from ..utils.device import resolve_device
-from .fusionutils import _project_points_to_frame, aggregate_map_dense, fusion_update_compact
+from .fusionutils import (
+    _project_points_to_frame,
+    _resolve_assoc_window,
+    _resolve_model_rows,
+    aggregate_map_dense,
+    fusion_update_compact,
+)
 
 __all__ = [
     "ICPSLAM",
@@ -53,15 +66,13 @@ class SLAMOptions:
     """Static SLAM configuration; the fields and defaults of the JAX
     package's ``SLAMOptions``.
 
-    Options of paths not ported yet (``assoc='projective'``,
-    ``assoc_window > 0``, ``block_size``) raise ``NotImplementedError``
-    when the step runs; ``merge_window``, ``model_rows`` and
-    ``window_merge`` only shape those paths or the TPU layout and are
-    accepted and ignored.
+    ``block_size`` (a path not ported yet) raises ``NotImplementedError``
+    when the step runs; ``merge_window`` only shapes the JAX package's TPU
+    layout and is accepted and ignored.
     """
 
     odom: str = "gradicp"  # 'gt' | 'icp' | 'gradicp'
-    assoc: str = "knn"  # 'knn' ('projective' waits for ROADMAP A8)
+    assoc: str = "knn"  # odometry association: 'knn' | 'projective'
     dsratio: int = 4
     pyramid: Optional[Tuple[int, ...]] = None  # coarse-to-fine dsratios
     numiters: int = 20
@@ -83,18 +94,14 @@ class SLAMOptions:
     nu: float = 200.0
     reuse_actives: bool = True  # odometry candidates from the fusion step
     merge_window: int = -1
-    assoc_window: int = 0
+    assoc_window: int = 0  # fusion association prefix rows (<= 0 off)
     odom_targets: str = "map"  # aggregate mapping: 'map' | 'recent'
-    model_rows: str = "auto"
-    window_merge: str = "dense"
+    model_rows: str = "auto"  # projective targets: 'gather' | 'dense' | 'auto'
+    window_merge: str = "dense"  # assoc_window merge: 'dense' | 'rows'
 
 
 def _check_ported(opts: SLAMOptions) -> None:
     """Raises for an option value that selects a path not ported yet."""
-    if opts.assoc == "projective":
-        raise NotImplementedError("assoc='projective' waits for ROADMAP A8")
-    if opts.assoc_window and opts.assoc_window > 0:
-        raise NotImplementedError("assoc_window > 0 waits for ROADMAP A8")
     if opts.block_size is not None:
         raise NotImplementedError("block_size (spatial block gating) waits for ROADMAP A8")
 
@@ -156,7 +163,10 @@ def _localize(map_state, prev_pose, rgb, depth, intrinsics, opts: SLAMOptions, c
     the strided global vertex map; the targets are the map points active
     in the previous frame that land on the ``ds`` pixel grid. ``cand``
     (optional ``(slots, valid, app_start)``) restricts the projection and
-    compaction to the rows carried from the previous fusion step.
+    compaction to the rows carried from the previous fusion step. Without
+    it, fusion mapping with ``assoc_window`` takes the targets from the
+    arena prefix window, as the fusion association does (in aggregate
+    mapping the prefix is append history, so the window is ignored there).
     """
     B, H, W, _ = rgb.shape
     _, _, gv, _, valid = _frame_maps(rgb, depth, intrinsics, prev_pose, local_maps)
@@ -164,7 +174,13 @@ def _localize(map_state, prev_pose, rgb, depth, intrinsics, opts: SLAMOptions, c
     tgt_caps = tuple(opts.tgt_capacity or _default_tgt_capacity(H, W, ds) for ds in levels)
 
     if cand is None:
-        src_rows, src_live = map_state.data, map_mask(map_state)
+        win = _resolve_assoc_window(opts.assoc_window, map_state.capacity) if opts.fusion else None
+        if win is None:
+            src_rows, src_live = map_state.data, map_mask(map_state)
+        else:
+            src_rows = map_state.data[:, :win]
+            idx = torch.arange(win, dtype=torch.int32, device=src_rows.device)
+            src_live = idx[None, :] < map_state.num_points[:, None]
     else:
         src_rows, src_live = _odometry_candidates(map_state, *cand, win=H * W)
     h, w, active = _project_points_to_frame(src_rows[..., 0:3], src_live, prev_pose, intrinsics, H, W)
@@ -193,24 +209,75 @@ def _localize(map_state, prev_pose, rgb, depth, intrinsics, opts: SLAMOptions, c
     return compose_transformations(transform, prev_pose)
 
 
+def _localize_projective(map_state, prev_pose, model_img, rgb, depth, intrinsics,
+                         opts: SLAMOptions, local_maps=None, model_rows=None):
+    """Odometry by projective association against the model image that the
+    previous fusion step made at ``prev_pose``: the (B, H*W, 7) target rows
+    are ``model_rows`` when carried, else one gather of the arena at
+    ``model_img``. The association gate defaults to ``dist_th**2`` (squared
+    distances): a projection onto an unrelated surface would otherwise give
+    a confidently wrong correspondence."""
+    B, H, W, _ = rgb.shape
+    CAP = map_state.capacity
+    _, _, gv, _, valid = _frame_maps(rgb, depth, intrinsics, prev_pose, local_maps)
+    if model_rows is not None:
+        tgt_img = model_rows
+    else:
+        rows = _take_rows(map_state.data, torch.clamp(model_img, max=CAP - 1))
+        tvalid = (model_img < CAP).to(rows.dtype)
+        tgt_img = torch.cat([rows[..., 0:6], tvalid[..., None]], dim=-1)
+    dist_thresh = opts.dist_thresh if opts.dist_thresh is not None else opts.dist_th**2
+
+    transform = None
+    for ds in opts.pyramid or (opts.dsratio,):
+        src = gv[:, ::ds, ::ds].reshape(B, -1, 3)
+        common = dict(
+            numiters=opts.numiters,
+            damp=opts.damp,
+            dist_thresh=dist_thresh,
+            robust_delta=opts.robust_delta,
+            src_valid=valid[:, ::ds, ::ds].reshape(B, -1).to(src.dtype),
+        )
+        if opts.odom == "gradicp":
+            transform = point_to_plane_gradICP_projective(
+                src, tgt_img, prev_pose, intrinsics, H, W, transform,
+                lambda_max=opts.lambda_max, B=opts.B, B2=opts.B2, nu=opts.nu, **common,
+            )
+        else:
+            transform = point_to_plane_ICP_projective(
+                src, tgt_img, prev_pose, intrinsics, H, W, transform, **common
+            )
+    return compose_transformations(transform, prev_pose)
+
+
 def _map_update(map_state, pose, rgb, depth, intrinsics, opts: SLAMOptions,
                 return_active: bool = False, local_maps=None):
     """Mapping: fuse (or aggregate) the live frame into the arena.
 
     With ``return_active`` the fusion path also returns
-    ``(slots, valid, model_img)``.
+    ``(slots, valid, model_img, model_rows or None)``.
     """
     vm, nm, gv, gn, valid = _frame_maps(rgb, depth, intrinsics, pose, local_maps)
     if opts.fusion:
         H, W = rgb.shape[1:3]
-        return fusion_update_compact(
+        dense = return_active and _resolve_model_rows(opts.model_rows, H, W, map_state.capacity)
+        ret = fusion_update_compact(
             map_state, gv, gn, vm, rgb, valid, pose, intrinsics,
             opts.dist_th, opts.dot_th, opts.sigma,
             opts.active_capacity or 2 * H * W,
             opts.block_size, opts.visible_capacity,
             return_active=return_active,
+            merge_window=opts.merge_window,
             assoc_window=opts.assoc_window,
+            dense_model_rows=dense,
+            window_merge=opts.window_merge,
+            # projective odometry does not reuse the compacted set
+            need_active_set=opts.assoc != "projective",
         )
+        if not return_active:
+            return ret
+        out, active = ret
+        return out, ((*active, None) if len(active) == 3 else active)
     out = aggregate_map_dense(map_state, gv, gn, vm, rgb, valid, opts.sigma)
     return (out, None) if return_active else out
 
@@ -225,6 +292,11 @@ def slam_step(map_state: MapState, prev_pose, rgb, depth, intrinsics, opts: SLAM
             raise ValueError("gt odometry requires gt_pose")
         pose = gt_pose
     else:
+        if opts.assoc == "projective":
+            raise ValueError(
+                "assoc='projective' needs the carried model image; use "
+                "slam_init_state/slam_step_state or slam_sequence"
+            )
         if not opts.fusion and opts.odom_targets == "recent":
             raise ValueError(
                 "odom_targets='recent' needs the carried append window; use "
@@ -240,10 +312,13 @@ class SLAMState(NamedTuple):
     Attributes:
         map_state: the arena.
         pose: (B, 4, 4) last frame's pose.
-        cand_slots / cand_valid: (B, A) compacted fusion active set.
+        cand_slots / cand_valid: (B, A) compacted fusion active set (the
+            gated set with ``assoc='projective'``, which does not reuse it).
         app_start: (B,) first arena slot appended by the last frame.
-        model_img: (B, H*W) int32 arena slot fused at each pixel (CAP none).
-        model_rows: None on the ported paths (projective odometry only).
+        model_img: (B, H*W) int32 arena slot fused at each pixel (CAP none):
+            the target of projective odometry.
+        model_rows: None, or the (B, H*W, 7) rows ``[point, normal, valid]``
+            at ``model_img`` when ``model_rows`` resolves to dense.
     """
 
     map_state: MapState
@@ -270,7 +345,7 @@ def slam_init_state(rgb, depth, intrinsics, opts: SLAMOptions, capacity: int, po
     A = opts.active_capacity or 2 * H * W
     app_start = map_state.num_points
     if opts.fusion:
-        map_state, (slots, valid, model_img) = _map_update(
+        map_state, (slots, valid, model_img, model_rows) = _map_update(
             map_state, pose0, rgb, depth, intrinsics, opts, return_active=True
         )
     else:
@@ -278,7 +353,8 @@ def slam_init_state(rgb, depth, intrinsics, opts: SLAMOptions, capacity: int, po
         slots = torch.zeros((B, A), dtype=torch.int32, device=dev)
         valid = torch.zeros((B, A), dtype=torch.bool, device=dev)
         model_img = torch.full((B, H * W), capacity, dtype=torch.int32, device=dev)
-    return SLAMState(map_state, pose0, slots, valid, app_start, model_img)
+        model_rows = None
+    return SLAMState(map_state, pose0, slots, valid, app_start, model_img, model_rows)
 
 
 def slam_step_state(state: SLAMState, rgb, depth, intrinsics, opts: SLAMOptions, gt_pose=None,
@@ -286,7 +362,8 @@ def slam_step_state(state: SLAMState, rgb, depth, intrinsics, opts: SLAMOptions,
     """One SLAM step on a :class:`SLAMState` (the frame-loop body).
 
     With fusion and ICP odometry, the odometry candidates are the carried
-    fusion active set plus the last frame's appends, not the whole arena.
+    fusion active set plus the last frame's appends, not the whole arena;
+    with ``assoc='projective'`` the target is the carried model image.
     """
     _check_ported(opts)
     if labels is not None:
@@ -295,6 +372,16 @@ def slam_step_state(state: SLAMState, rgb, depth, intrinsics, opts: SLAMOptions,
         if gt_pose is None:
             raise ValueError("gt odometry requires gt_pose")
         pose = gt_pose
+    elif opts.assoc == "projective":
+        if not opts.fusion:
+            raise ValueError(
+                "assoc='projective' requires fusion mapping (the model image "
+                "comes from the fusion step)"
+            )
+        pose = _localize_projective(
+            state.map_state, state.pose, state.model_img, rgb, depth, intrinsics, opts,
+            local_maps=local_maps, model_rows=state.model_rows,
+        )
     else:
         cand = None
         if opts.fusion and opts.reuse_actives:
@@ -307,14 +394,15 @@ def slam_step_state(state: SLAMState, rgb, depth, intrinsics, opts: SLAMOptions,
                          cand=cand, local_maps=local_maps)
     app_start = state.map_state.num_points
     if opts.fusion:
-        m, (slots, valid, model_img) = _map_update(
+        m, (slots, valid, model_img, model_rows) = _map_update(
             state.map_state, pose, rgb, depth, intrinsics, opts,
             return_active=True, local_maps=local_maps,
         )
     else:
         m = _map_update(state.map_state, pose, rgb, depth, intrinsics, opts, local_maps=local_maps)
         slots, valid, model_img = state.cand_slots, state.cand_valid, state.model_img
-    return SLAMState(m, pose, slots, valid, app_start, model_img)
+        model_rows = state.model_rows
+    return SLAMState(m, pose, slots, valid, app_start, model_img, model_rows)
 
 
 def slam_sequence(rgb_seq, depth_seq, intrinsics, poses_seq, opts: SLAMOptions, capacity: int,
@@ -436,6 +524,21 @@ class ICPSLAM:
                 raise ValueError(f"{key} {kwargs[key]!r} not in {allowed}")
         if kwargs.get("odom_targets") == "recent" and self._fusion:
             raise ValueError("odom_targets='recent' applies to aggregate mapping (ICPSLAM) only")
+        assoc_window = kwargs.get("assoc_window", 0) or 0
+        if kwargs.get("assoc") == "projective" and not self._fusion:
+            raise ValueError("assoc='projective' requires fusion mapping (PointFusion)")
+        if assoc_window > 0 and not self._fusion:
+            raise ValueError(
+                "assoc_window requires fusion mapping (PointFusion): in aggregate mapping "
+                "the arena prefix is append history; use odom_targets='recent' instead"
+            )
+        if assoc_window > 0 and kwargs.get("block_size") is not None:
+            raise ValueError("assoc_window and block_size are mutually exclusive working-set bounds")
+        if assoc_window > 0 and (kwargs.get("merge_window", -1) or 0) > 0:
+            raise ValueError(
+                "an explicit merge_window has no effect with assoc_window: drop "
+                "merge_window (or set it to -1 or 0)"
+            )
         self.device = resolve_device(device)
         self.odom = odom
         self.opts = SLAMOptions(

@@ -6,9 +6,10 @@ JAX, so it also runs where only PyTorch is installed:
 
     GRADSLAM_TPU_TEST_REAL=1 python -m pytest -o addopts="" -m cuda tests/test_torch_cuda.py -q
 
-Tolerances: the kernel and the plain version must agree bit for bit
-(indices and distances); the main path on the card must match the same
-run on the CPU to 1e-4 in the poses (float32 sums in another order).
+Tolerances: the kernels and their plain versions must agree bit for bit
+(KNN indices and distances, winner slots); the main path on the card must
+match the same run on the CPU to 1e-4 in the poses (float32 sums in another
+order).
 """
 
 import pathlib
@@ -18,7 +19,15 @@ import pytest
 import torch
 
 from gradslam_tpu_torch import PointFusion, RGBDImages
-from gradslam_tpu_torch.ops import knn, knn_kernel, knn_reference
+from gradslam_tpu_torch.ops import (
+    knn,
+    knn_kernel,
+    knn_reference,
+    pixel_winner,
+    pixel_winner_reference,
+    winner_keys,
+    winner_kernel,
+)
 
 DATA = pathlib.Path(__file__).parent / "data" / "msrd_b2s3"
 
@@ -67,15 +76,62 @@ def test_knn_kernel_rejects_what_it_does_not_take(cuda_device):
         knn_kernel(torch.rand((1, 8, 3), device=cuda_device), torch.rand((1, 8, 3), device=cuda_device))
 
 
+def _winner_inputs(gen, B, N, P, dev, ties=False):
+    pix = gen.integers(0, P + 1, (B, N)).astype(np.int32)  # P: no pixel
+    if ties:
+        cc = gen.choice(np.array([0.0, 0.5, 1.0], np.float32), (B, N))
+        ray = gen.choice(np.array([0.0, 1e-4, 3.0], np.float32), (B, N))
+        cc[:, ::5] = -0.0
+    else:
+        cc = gen.uniform(0.01, 20.0, (B, N)).astype(np.float32)
+        ray = gen.uniform(0.0, 0.01, (B, N)).astype(np.float32)
+    k_hi, k_lo = winner_keys(torch.from_numpy(cc).to(dev), torch.from_numpy(ray).to(dev))
+    slot = torch.from_numpy(np.stack([gen.permutation(N) for _ in range(B)]).astype(np.int32)).to(dev)
+    return torch.from_numpy(pix).to(dev), k_hi, k_lo, slot
+
+
+@pytest.mark.parametrize("B,N,P,ties", [(2, 38400, 19200, False), (2, 115200, 76800, True), (1, 999, 7, True)])
+def test_winner_kernel_equals_plain_version(cuda_device, B, N, P, ties):
+    args = _winner_inputs(np.random.default_rng(N), B, N, P, cuda_device, ties)
+    before = winner_kernel.launches
+    got = pixel_winner(*args, P, 10**6)
+    assert winner_kernel.launches == before + 1
+    assert torch.equal(got, pixel_winner_reference(*args, P, 10**6))
+
+
+def test_winner_kernel_edge_cases(cuda_device):
+    gen = np.random.default_rng(3)
+    pix, k_hi, k_lo, slot = _winner_inputs(gen, 2, 5000, 300, cuda_device)
+    dumped = torch.full_like(pix, 300)
+    assert (pixel_winner(dumped, k_hi, k_lo, slot, 300, 5000) == 5000).all()
+    one = torch.full_like(pix, 17)  # every candidate on one pixel
+    assert torch.equal(pixel_winner(one, k_hi, k_lo, slot, 300, 5000),
+                       pixel_winner_reference(one, k_hi, k_lo, slot, 300, 5000))
+    empty = pix[:, :0]
+    assert (pixel_winner(empty, empty, empty, empty, 300, 7) == 7).all()
+
+
+def test_winner_kernel_rejects_what_it_does_not_take(cuda_device):
+    x = torch.zeros((2, 8), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(TypeError):
+        winner_kernel(x, x, x, x.long(), 4, 8)
+    with pytest.raises(ValueError):
+        winner_kernel(x, x, x, x[:, ::2], 4, 8)
+    with pytest.raises(ValueError):
+        winner_kernel(x, x, x, x.cpu(), 4, 8)
+
+
 def _clip():
     return tuple(np.load(DATA / f"{n}.npy").astype(np.float32) for n in ("colors", "depths", "intrinsics"))
 
 
-def test_frame_loop_never_waits_on_the_host(cuda_device):
+@pytest.mark.parametrize("kw", [dict(), dict(assoc="projective", assoc_window=2 * 120 * 160)],
+                         ids=["knn", "projective"])
+def test_frame_loop_never_waits_on_the_host(cuda_device, kw):
     """No op of the frame loop synchronizes with the host: PyTorch's sync
     debug mode turns any such call into an error."""
     rgbd = RGBDImages(*_clip(), device=cuda_device)
-    slam = PointFusion(device=cuda_device)
+    slam = PointFusion(device=cuda_device, **kw)
     slam(rgbd)  # builds and loads the kernel
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -86,11 +142,13 @@ def test_frame_loop_never_waits_on_the_host(cuda_device):
     assert torch.isfinite(poses).all()
 
 
-def test_pointfusion_on_the_card_matches_the_cpu(cuda_device):
+@pytest.mark.parametrize("kw", [dict(), dict(assoc="projective", assoc_window=2 * 120 * 160)],
+                         ids=["knn", "projective"])
+def test_pointfusion_on_the_card_matches_the_cpu(cuda_device, kw):
     c, d, K = _clip()
     out = {}
     for dev in (cuda_device, torch.device("cpu")):
-        pcs, poses = PointFusion(device=dev)(RGBDImages(c, d, K, device=dev))
+        pcs, poses = PointFusion(device=dev, **kw)(RGBDImages(c, d, K, device=dev))
         assert poses.device.type == dev.type
         out[dev.type] = (poses.cpu().numpy(), pcs.num_points_per_pointcloud.cpu().numpy())
     assert np.abs(out["cuda"][0] - out["cpu"][0]).max() < 1e-4

@@ -20,6 +20,7 @@ import gradslam_tpu.slam.fusionutils as JF
 from gradslam_tpu.slam import icpslam as JS
 from gradslam_tpu.structures.maparena import MapState as JMapState
 import gradslam_tpu_torch.slam.fusionutils as TF
+from gradslam_tpu_torch.ops.winner import winner_keys, winner_order_keys
 from gradslam_tpu_torch.slam import icpslam as TS
 from gradslam_tpu_torch.structures.maparena import map_state_from_numpy
 
@@ -87,6 +88,12 @@ def _lax_order(pix, cc, ray, slot):
     return np.asarray(out[3])
 
 
+def _winner_order(pix, cc, ray, slot):
+    """The port's sort order of the winner's plain version."""
+    k_hi, k_lo = winner_keys(torch.from_numpy(cc), torch.from_numpy(ray))
+    return winner_order_keys(torch.from_numpy(pix), k_hi, k_lo, torch.from_numpy(slot))
+
+
 def test_winner_order_is_jax_order_on_ties():
     """Crafted ties: many rows share a pixel, ccounts repeat (and one is
     -0.0 against 0.0), ray distances repeat; the slot settles the rest."""
@@ -98,7 +105,7 @@ def test_winner_order_is_jax_order_on_ties():
     cc[0, :3] = 0.0
     ray = rng.choice(np.array([0.0, 1e-4, 2e-4, 3.0], np.float32), (B, N))
     slot = np.stack([rng.permutation(N) for _ in range(B)]).astype(np.int32)
-    order = TF.winner_order(*(torch.from_numpy(x) for x in (pix, cc, ray, slot)))
+    order = _winner_order(pix, cc, ray, slot)
     t_slots = np.take_along_axis(slot, order.numpy(), 1)
     np.testing.assert_array_equal(t_slots, _lax_order(pix, cc, ray, slot))
     ref = np.stack([slot[b][np.lexsort((slot[b], ray[b], -cc[b], pix[b]))] for b in range(B)])
@@ -111,7 +118,7 @@ def test_winner_order_large_values():
     cc = np.array([[3.0, 1e30, 1e-7, 0.5, 1e30]], np.float32)
     ray = np.array([[0.0, 7e4, 0.0, 1e-30, 1e-30]], np.float32)
     slot = np.array([[2_000_000, 4, 1, 0, 3]], np.int32)
-    order = TF.winner_order(*(torch.from_numpy(x) for x in (pix, cc, ray, slot)))
+    order = _winner_order(pix, cc, ray, slot)
     np.testing.assert_array_equal(
         np.take_along_axis(slot, order.numpy(), 1), _lax_order(pix, cc, ray, slot)
     )
@@ -146,9 +153,10 @@ def test_unported_paths_raise(mid_sequence):
     ms = mid_sequence
     tstate = map_state_from_numpy(ms["data"], ms["num_points"], device="cpu")
     args = _args(ms, lambda x: torch.from_numpy(np.array(x)))
-    for kw in (dict(block_size=256), dict(assoc_window=1000), dict(dense_model_rows=True)):
+    labels = torch.zeros((2, H, W), dtype=torch.int32)
+    for kw in (dict(block_size=256), dict(visible_capacity=64), dict(frame_labels=labels)):
         with pytest.raises(NotImplementedError):
             TF.fusion_update_compact(tstate, *args, 0.05, 0.9, 0.6, 100, **kw)
     with pytest.raises(NotImplementedError):
         TS.slam_step(tstate, torch.from_numpy(ms["pose"]), None, None, None,
-                     TS.SLAMOptions(assoc="projective"))
+                     TS.SLAMOptions(block_size=256))

@@ -101,7 +101,7 @@ def test_icpslam_aggregate_and_options(clip):
     valid = (clip["depths"][:1, :2, ..., 0] > 0).sum()
     assert pcs.num_points_per_pointcloud.tolist() == [valid]
     with pytest.raises(NotImplementedError):
-        PointFusion(assoc="projective", device="cpu")
+        PointFusion(block_size=256, device="cpu")
     with pytest.raises(NotImplementedError):
         PointFusion(loop_closure="pose", device="cpu")
     with pytest.raises(ValueError):

@@ -4,13 +4,15 @@
 
 Runs ``PointFusion()`` (gradICP odometry, KNN association, exact fusion) on
 the golden clip (B=2, L=10, 120x160) and at the ScanNet geometry (B=2,
-L=16, 240x320, the golden clip upsampled 2x as chip_smoke.py does), each
-once to warm up, ``--reps`` times timed (the median is reported) and once
-under ``torch.profiler``. For each it reports the wall time per frame step
-without and with the profiler, the device time summed over kernels, the
-device's busy and idle share of the wall time, kernel launches per frame
-step, and the kernels that take the most device time. With ``--out`` it
-also writes the full table as JSON there.
+L=16, 240x320, the golden clip upsampled 2x as chip_smoke.py does), and
+``PointFusion(assoc='projective', ...)`` at both (window 2*H*W on the
+golden clip; window 3*H*W and active buffer 1.5*H*W at the ScanNet
+geometry, as chip_smoke.py runs them), each once to warm up, ``--reps`` times timed (the median is reported) and
+once under ``torch.profiler``. For each it reports the wall time per frame
+step without and with the profiler, the device time summed over kernels,
+the device's busy and idle share of the wall time, kernel launches per
+frame step, and the kernels that take the most device time. With ``--out``
+it also writes the full table as JSON there.
 """
 
 from __future__ import annotations
@@ -25,15 +27,17 @@ import time
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+# CUDA functions of each hand-written kernel (csrc/*.cu)
+PORT_KERNELS = {"knn": ("knn_init", "knn_chunk", "knn_finalize"), "winner": ("winner_fold_",)}
 
 
-def profile_point(name, colors, depths, K, dev, reps=1, top=15):
+def profile_point(name, colors, depths, K, dev, reps=1, top=15, **options):
     from torch.profiler import ProfilerActivity, profile
 
     from gradslam_tpu_torch import PointFusion, RGBDImages
 
     rgbd = RGBDImages(colors, depths, K, device=dev)
-    slam = PointFusion(device=dev)
+    slam = PointFusion(device=dev, **options)
     slam(rgbd)  # warm-up
     torch.cuda.synchronize()
     walls = []
@@ -69,6 +73,13 @@ def profile_point(name, colors, depths, K, dev, reps=1, top=15):
         d[0] += 1
         d[1] += e.time_range.elapsed_us()
     rows = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    # the port's hand-written kernels, by the names of their CUDA functions
+    ours = {}
+    for label, marks in PORT_KERNELS.items():
+        hits = [v for k, v in by_name.items() if any(m in k for m in marks)]
+        us = sum(v[1] for v in hits)
+        ours[label] = dict(launches=sum(v[0] for v in hits), ms=us / 1e3,
+                           share_of_device=us / busy_us if busy_us else 0.0)
     out = dict(
         point=name,
         frames=B * L,
@@ -84,6 +95,7 @@ def profile_point(name, colors, depths, K, dev, reps=1, top=15):
         device_kernel_ms=busy_us / 1e3,
         device_busy_share=covered / 1e6 / wall,
         device_idle_share=1.0 - covered / 1e6 / wall,
+        port_kernels=ours,
         top_kernels=[
             dict(name=k[:120], launches=c, ms=us / 1e3, share_of_device=us / busy_us if busy_us else 0.0)
             for k, (c, us) in rows[:top]
@@ -95,6 +107,9 @@ def profile_point(name, colors, depths, K, dev, reps=1, top=15):
           f"{out['launches_per_step']:.1f} kernel launches per step, device kernels "
           f"{out['device_kernel_ms']:.3f} ms, device busy {out['device_busy_share']:.4f}, "
           f"idle {out['device_idle_share']:.4f}", flush=True)
+    for label, r in ours.items():
+        print(f"  port kernel {label}: {r['ms']:.4f} ms in {r['launches']} CUDA launches, "
+              f"{r['share_of_device']:.4f} of device time")
     for r in out["top_kernels"]:
         print(f"  {r['ms']:10.4f} ms {r['launches']:6d}x {r['share_of_device']:.4f}  {r['name']}")
     return out
@@ -120,11 +135,16 @@ def main(argv=None) -> int:
     res = {"card": smi, "torch": torch.__version__, "points": []}
     colors, depths, K = chip_smoke._golden_clip(10)
     res["points"].append(profile_point("golden B=2 L=10 120x160", colors, depths, K, dev, args.reps))
-    colors, depths, K = chip_smoke._golden_clip(16)
-    colors, depths = chip_smoke._bilinear2x(colors), chip_smoke._bilinear2x(depths)
-    K = K.copy()
-    K[:, :, :2] *= 2.0
+    res["points"].append(profile_point(
+        "projective golden B=2 L=10 120x160", colors, depths, K, dev, args.reps,
+        assoc="projective", assoc_window=2 * 120 * 160,
+    ))
+    colors, depths, K = chip_smoke._scannet_clip(16)
     res["points"].append(profile_point("scannet B=2 L=16 240x320", colors, depths, K, dev, args.reps))
+    res["points"].append(profile_point(
+        "projective scannet B=2 L=16 240x320", colors, depths, K, dev, args.reps,
+        assoc="projective", assoc_window=3 * 240 * 320, active_capacity=(3 * 240 * 320) // 2,
+    ))
     if args.out:
         out = pathlib.Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
