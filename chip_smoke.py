@@ -11,8 +11,13 @@ full-arena fusion) and ``PointFusion(assoc='projective', assoc_window=...)``
 
   1. the card's name and power limit, and the kernel build;
   2. the KNN kernel against the plain version and a float64 oracle at the
-     main path's shapes and at edge cases, with its time, the plain
-     version's, ``torch.cdist``'s as a yardstick, and its bound;
+     main path's shapes, both with 30% of the targets invalid and scattered
+     and in the main path's layout (the valid targets a prefix), on the
+     main path's own inputs (captured from PointFusion runs, which also
+     check that layout), and at edge cases (no valid target, ties, an empty
+     batch entry, ragged sizes, T=200,000), with its time at the main
+     path's shapes, the plain version's, ``torch.cdist``'s as a yardstick,
+     and its bound;
   3. the golden clip (B=2, L=10, 120x160) against the reference goldens;
   4. the ScanNet geometry (B=2, L=16, 240x320, a 1.23M-row arena);
   5. the per-pixel winner kernel against its plain version at the diag's
@@ -116,8 +121,8 @@ def _knn_oracle(src, tgt, valid, chunk=256):
 def _knn_case(name, src, tgt, valid, oracle=True):
     from gradslam_tpu_torch.ops.knn import knn_kernel, knn_reference, prepare_targets
 
-    packed = prepare_targets(tgt, valid).packed
-    d_k, i_k = knn_kernel(src, packed)
+    prep = prepare_targets(tgt, valid)
+    d_k, i_k = knn_kernel(src, prep.packed, prep.limit)
     d_p, i_p = knn_reference(src, tgt, valid)
     torch.cuda.synchronize()
     _check(torch.equal(i_k, i_p), f"knn {name}: indices differ from the plain version")
@@ -131,14 +136,51 @@ def _knn_case(name, src, tgt, valid, oracle=True):
         err_oracle = float(np.abs(dk[fin] - ref[fin]).max()) if fin.any() else 0.0
         _check(err_oracle <= 1e-4, f"knn {name}: {err_oracle} from the float64 oracle")
     err_plain = float((d_k - d_p).abs().nan_to_num(0.0).max())
-    _log(f"knn {name}: src {tuple(src.shape)} tgt {tuple(tgt.shape)}: indices equal, "
-         f"max |d - plain| {err_plain}, max |d - float64 oracle| {err_oracle}")
+    _log(f"knn {name}: src {tuple(src.shape)} tgt {tuple(tgt.shape)} limit "
+         f"{prep.limit.tolist()}: indices equal, max |d - plain| {err_plain}, "
+         f"max |d - float64 oracle| {err_oracle}")
     return d_k, i_k, err_plain
 
 
+def _main_path_knn_inputs(colors, depths, K, dev, every=40):
+    """The (src, tgt, valid) of every ``every``-th KNN call of a
+    ``PointFusion()`` run, as ``_localize`` builds them (the first call of
+    each frame step by default), and each call's valid count and limit."""
+    from gradslam_tpu_torch import PointFusion, RGBDImages
+    from gradslam_tpu_torch.odometry import icputils
+
+    calls, counts = [], []
+    real_knn = icputils.knn
+
+    def recording_knn(src, tgt, tgt_valid=None):
+        counts.append((int(tgt.valid.sum()), int(tgt.limit.sum()), tgt.num_targets, tgt.limit.shape[0]))
+        if (len(counts) - 1) % every == 0:
+            calls.append((src.detach().clone(), tgt.tgt.clone(), tgt.valid.clone()))
+        return real_knn(src, tgt, tgt_valid)
+
+    icputils.knn = recording_knn
+    try:
+        PointFusion(device=dev)(RGBDImages(colors, depths, K, device=dev))
+    finally:
+        icputils.knn = real_knn
+    return calls, counts
+
+
+def _knn_bound(src, limit_sum, valid_sum):
+    """(bound ms, 'bytes' or 'operations'): each source against the valid
+    targets of its own batch entry, 8 float32 operations a pair; the bytes
+    are the sources, the targets below each limit and the outputs."""
+    B, S, _ = src.shape
+    nbytes = B * S * 3 * 4 + limit_sum * 4 * 4 + B * S * (4 + 4)
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    ops_s = S * valid_sum * KNN_OPS_PER_PAIR / FP32_OPS_PER_S
+    return 1e3 * max(bytes_s, ops_s), "bytes" if bytes_s > ops_s else "operations"
+
+
 def knn_phase(dev):
-    """Kernel vs plain version at the main path's shapes and edge cases;
-    returns the kernel's JSON entry (without ``launches``)."""
+    """Kernel vs plain version at the main path's shapes and layouts, on the
+    main path's own inputs, and at edge cases; returns the kernel's JSON
+    entry (without ``launches``)."""
     from gradslam_tpu_torch.ops.knn import knn_kernel, knn_reference, prepare_targets
 
     gen = np.random.default_rng(0)
@@ -149,12 +191,20 @@ def knn_phase(dev):
     def validity(B, T, frac):
         return torch.from_numpy(gen.random((B, T)) >= frac).to(dev)
 
+    def prefix(B, T, counts):
+        return torch.arange(T, device=dev)[None, :] < torch.tensor(counts, device=dev)[:, None]
+
     errs = []
-    shapes = {}
-    for name, B, S, T in (("golden", 2, 1200, 5120), ("scannet", 2, 4800, 19456)):
-        src, tgt, val = cloud(B, S), cloud(B, T), validity(B, T, 0.3)
-        errs.append(_knn_case(f"{name} B={B} S={S} T={T} 30% invalid", src, tgt, val)[2])
-        shapes[name] = (src, tgt, val)
+    timed = {}
+    # the main path's shapes: 30% of targets invalid and scattered (PR 1's
+    # cases), and the main path's layout, a valid prefix of the mean count
+    # measured on that path (1,776 of 5,120 golden, 6,229 of 19,456 ScanNet)
+    for name, B, S, T, n_valid in (("golden", 2, 1200, 5120, 1776), ("scannet", 2, 4800, 19456, 6229)):
+        src, tgt = cloud(B, S), cloud(B, T)
+        for layout, val in (("30% invalid", validity(B, T, 0.3)), (f"prefix {n_valid}", prefix(B, T, [n_valid] * B))):
+            case = f"{name} B={B} S={S} T={T} {layout}"
+            errs.append(_knn_case(case, src, tgt, val)[2])
+            timed[case] = (src, tgt, val)
     src, tgt = cloud(2, 321), cloud(2, 777)
     errs.append(_knn_case("unpadded 321x777", src, tgt, validity(2, 777, 0.0))[2])
     d, i, _ = _knn_case("all invalid", src, tgt, validity(2, 777, 1.01), oracle=False)
@@ -163,39 +213,59 @@ def knn_phase(dev):
     tgt_dup = torch.cat([tgt, tgt], dim=1)
     d, i, _ = _knn_case("duplicate-target ties", src, tgt_dup, validity(2, 2 * 777, 0.0))
     _check(int(i.max()) < 777, "knn ties: a duplicate's higher index won")
+    # ties between runs of one warp's part: 8 points repeated along T, so
+    # every run of 8 targets is the same; the first run must keep the tie
+    for T in (256, 5120):
+        d, i, _ = _knn_case(f"repeated runs T={T}", cloud(2, 300), cloud(2, 8).repeat(1, T // 8, 1),
+                            validity(2, T, 0.0))
+        _check(int(i.max()) < 8, "knn repeated runs: a later run kept a tie")
+    src, tgt = cloud(2, 1200), cloud(2, 5120)
+    d, i, _ = _knn_case("limit 0 beside a full entry", src, tgt, prefix(2, 5120, [5120, 0]))
+    _check(bool(torch.isinf(d[1]).all()) and int(i[1].abs().max()) == 0, "knn limit 0: not (inf, 0)")
+    for name, B, S, T in (("ragged", 3, 1000, 1000), ("T=1", 3, 77, 1), ("S=1", 3, 1, 5000)):
+        errs.append(_knn_case(f"{name} B={B} S={S} T={T}", cloud(B, S), cloud(B, T), validity(B, T, 0.3))[2])
+    errs.append(_knn_case("large T B=2 S=1200 T=200000", cloud(2, 1200), cloud(2, 200_000),
+                          validity(2, 200_000, 0.3), oracle=False)[2])
+    # the main path's own inputs: the first KNN call of each frame step of
+    # PointFusion() on the golden clip and at the ScanNet geometry
+    for name, clip in (("golden", _golden_clip(10)), ("scannet", _scannet_clip(4))):
+        calls, counts = _main_path_knn_inputs(*clip, dev)
+        c = np.array(counts, dtype=np.float64)
+        _check(bool((c[:, 0] == c[:, 1]).all()), f"knn {name} main path: the valid targets are not a prefix")
+        _log(f"knn {name} main path: {len(counts)} calls, valid targets a prefix in every call, "
+             f"mean {c[:, 0].mean() / c[0, 3]:.1f} valid of T={int(c[0, 2])} a batch entry "
+             f"({c[:, 0].sum() / (c[:, 2] * c[:, 3]).sum():.4f}), range "
+             f"{int(c[:, 0].min())}-{int(c[:, 0].max())} a call")
+        for n, (src, tgt, val) in enumerate(calls):
+            errs.append(_knn_case(f"{name} main path, frame step {n + 1}", src, tgt, val)[2])
 
-    # timing at the main path's shapes
+    # timing at the main path's shapes and layouts
     timings = {}
-    for name, (src, tgt, val) in shapes.items():
-        packed = prepare_targets(tgt, val).packed
-        ms = _time_ms(lambda: knn_kernel(src, packed), reps=50)
+    for case, (src, tgt, val) in timed.items():
+        prep = prepare_targets(tgt, val)
+        ms = _time_ms(lambda: knn_kernel(src, prep.packed, prep.limit), reps=50)
         plain_ms = _time_ms(lambda: knn_reference(src, tgt, val), reps=5, warmup=1)
         library_ms = _time_ms(
-            lambda: torch.cdist(src, tgt, compute_mode="donot_use_mm_for_euclid_dist").min(-1),
+            lambda: torch.cdist(src, tgt, compute_mode="donot_use_mm_for_euclid_dist")
+            .masked_fill_(~val[:, None, :], torch.inf).min(-1),
             reps=10,
         )
-        B, S, _ = src.shape
-        T = tgt.shape[1]
-        # each source against the valid targets of its own batch entry:
-        # val.sum() already runs over the batch
-        pairs = S * int(val.sum())
-        nbytes = B * S * 3 * 4 + B * T * 4 * 4 + B * S * (4 + 4)
-        bytes_s = nbytes / HBM_BYTES_PER_S
-        ops_s = pairs * KNN_OPS_PER_PAIR / FP32_OPS_PER_S
-        bound_ms = 1e3 * max(bytes_s, ops_s)
-        bound_by = "bytes" if bytes_s > ops_s else "operations"
-        timings[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        bound_ms, bound_by = _knn_bound(src, int(prep.limit.sum()), int(val.sum()))
+        timings[case] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                              bound_ms=bound_ms, bound_by=bound_by)
-        _log(f"knn timing {name} B={B} S={S} T={T}: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
-             f"cdist {library_ms:.6f} ms, bound {bound_ms:.6f} ms ({bound_by})")
+        _log(f"knn timing {case}: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, cdist "
+             f"{library_ms:.6f} ms, bound {bound_ms:.6f} ms ({bound_by}), tiles "
+             f"{knn_kernel.tiles(src.shape[0], src.shape[1], tgt.shape[1])}")
+    main = "scannet B=2 S=4800 T=19456 prefix 6229"
     entry = dict(
         name="knn",
         route="cuda",
         source="gradslam_tpu_torch/csrc/knn.cu",
         replaces="gradslam_tpu/ops/knn.py:75",
         max_abs_err=max(errs),
-        **timings["scannet"],
-        shape="B=2 S=4800 T=19456",
+        **timings[main],
+        shape=main + " (the main path's layout)",
+        other_shapes={case: t for case, t in timings.items() if case != main},
     )
     return entry
 

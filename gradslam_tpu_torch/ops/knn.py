@@ -35,10 +35,15 @@ class KnnTargets(NamedTuple):
         packed: (B, T, 4) float32 rows ``[x, y, z, w]`` (detached), with
             ``w = 0`` for a valid target and ``+inf`` for an invalid one.
         num_targets: T.
+        limit: (B,) int32, one past the last valid target of each batch
+            entry (0 when it has none). No target at or beyond it is valid,
+            so the kernel reads none of them: on the main path the valid
+            targets are a prefix and ``limit`` is their count.
     """
 
     packed: torch.Tensor
     num_targets: int
+    limit: torch.Tensor
 
     @property
     def tgt(self) -> torch.Tensor:
@@ -50,18 +55,25 @@ class KnnTargets(NamedTuple):
 
 
 def prepare_targets(tgt: torch.Tensor, tgt_valid: Optional[torch.Tensor] = None) -> KnnTargets:
-    """Packs targets and bakes validity into the fourth channel, once.
+    """Packs targets, bakes validity into the fourth channel and finds each
+    batch entry's ``limit``, once, on the targets' device (no host sync).
 
     The ICP solvers call :func:`knn` twice per iteration against the same
     targets, so this loop-invariant work is hoisted out of the solver loop.
     """
     if tgt.dim() != 3 or tgt.shape[-1] != 3:
         raise ValueError(f"tgt must be (B, T, 3), got {tuple(tgt.shape)}")
+    B, T, _ = tgt.shape
     tgt = tgt.detach()
     w = torch.zeros_like(tgt[..., :1])
-    if tgt_valid is not None:
-        w = w.masked_fill(~tgt_valid.bool()[..., None], torch.inf)
-    return KnnTargets(torch.cat([tgt, w], dim=-1).contiguous(), tgt.shape[1])
+    if tgt_valid is None or T == 0:
+        limit = torch.full((B,), T, dtype=torch.int32, device=tgt.device)
+    else:
+        valid = tgt_valid.bool()
+        w = w.masked_fill(~valid[..., None], torch.inf)
+        pos = torch.arange(1, T + 1, dtype=torch.int32, device=tgt.device)
+        limit = torch.where(valid, pos, 0).amax(dim=1).to(torch.int32)
+    return KnnTargets(torch.cat([tgt, w], dim=-1).contiguous(), T, limit)
 
 
 def knn_reference(
@@ -123,18 +135,38 @@ class _KnnKernel:
 
             lib = ctypes.CDLL(str(build(self.source)))
             fn = lib.gst_knn
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
             self._lib, self._fn = lib, fn
         return self._fn
 
-    def __call__(self, src: torch.Tensor, packed: torch.Tensor):
+    @staticmethod
+    def tiles(B: int, S: int, T: int):
+        """(sources a lane, blocks a cluster) for a call's shapes, chosen on
+        the card with ``tools/knn_tiles.py``: the targets split over up to 8
+        blocks of 4 warps, one warp part per 64-target round of T; 4
+        sources a lane where that still gives the 132 SMs 4 blocks each,
+        else 2."""
+        splits = max(1, min(8, -(-T // 256)))
+        return (4 if B * -(-S // 128) * splits >= 4 * 132 else 2), splits
+
+    def __call__(self, src: torch.Tensor, packed: torch.Tensor, limit: torch.Tensor):
         """``src`` (B, S, 3) and ``packed`` (B, T, 4) float32 contiguous
-        CUDA tensors on one device -> (dist (B, S) float32, idx (B, S) int32)."""
-        if not (src.is_cuda and packed.is_cuda) or src.device != packed.device:
-            raise ValueError("knn kernel: src and targets must be on one CUDA device")
+        CUDA tensors and ``limit`` (B,) int32 on one device -> (dist (B, S)
+        float32, idx (B, S) int32)."""
+        B, S = src.shape[:2]
+        return self.launch(src, packed, limit, *self.tiles(B, S, packed.shape[1]))
+
+    def launch(self, src, packed, limit, k: int, splits: int):
+        """One launch with explicit tiles (:meth:`tiles` picks them)."""
+        if not (src.is_cuda and packed.is_cuda and limit.is_cuda) or not (
+            src.device == packed.device == limit.device
+        ):
+            raise ValueError("knn kernel: src, targets and limit must be on one CUDA device")
         if src.dtype != torch.float32 or packed.dtype != torch.float32:
             raise TypeError(f"knn kernel takes float32, got {src.dtype} and {packed.dtype}")
+        if limit.dtype != torch.int32:
+            raise TypeError(f"knn kernel: limit must be int32, got {limit.dtype}")
         if src.dim() != 3 or src.shape[-1] != 3 or packed.dim() != 3 or packed.shape[-1] != 4:
             raise ValueError(
                 f"knn kernel: src (B, S, 3) and targets (B, T, 4), got "
@@ -142,23 +174,26 @@ class _KnnKernel:
             )
         B, S, _ = src.shape
         T = packed.shape[1]
-        if packed.shape[0] != B:
-            raise ValueError(f"knn kernel: batch {B} vs {packed.shape[0]}")
-        if B > 65535 or (T + 511) // 512 > 65535 or B * S >= 2**31 or T >= 2**31:
+        if packed.shape[0] != B or tuple(limit.shape) != (B,):
+            raise ValueError(f"knn kernel: batch {B} vs {packed.shape[0]} and limit {tuple(limit.shape)}")
+        if k not in (2, 4) or not 1 <= splits <= 8:
+            raise ValueError(f"knn kernel: no tiles k={k}, splits={splits}")
+        if B > 65535 or B * S >= 2**31 or B * T >= 2**31:
             raise ValueError(f"knn kernel: sizes out of range (B={B}, S={S}, T={T})")
-        if not (src.is_contiguous() and packed.is_contiguous()):
+        if not (src.is_contiguous() and packed.is_contiguous() and limit.is_contiguous()):
             raise ValueError("knn kernel: inputs must be contiguous")
         if packed.data_ptr() % 16:
             raise ValueError("knn kernel: targets must be 16-byte aligned")
         fn = self.load()
         dist = torch.empty((B, S), dtype=torch.float32, device=src.device)
         idx = torch.empty((B, S), dtype=torch.int32, device=src.device)
-        scratch = torch.empty((B, S), dtype=torch.int64, device=src.device)
+        if B * S == 0:
+            return dist, idx
         with torch.cuda.device(src.device):
             stream = torch.cuda.current_stream().cuda_stream
             err = fn(
-                src.data_ptr(), packed.data_ptr(), dist.data_ptr(), idx.data_ptr(),
-                scratch.data_ptr(), B, S, T, stream,
+                src.data_ptr(), packed.data_ptr(), limit.data_ptr(), dist.data_ptr(),
+                idx.data_ptr(), B, S, T, k, splits, stream,
             )
         if err != 0:
             raise RuntimeError(f"knn kernel launch failed: cudaError {err}")
@@ -190,8 +225,8 @@ def knn(
     if src.dim() != 3 or src.shape[-1] != 3:
         raise ValueError(f"src must be (B, S, 3), got {tuple(src.shape)}")
     if src.is_cuda:
-        packed = tgt.packed if isinstance(tgt, KnnTargets) else prepare_targets(tgt, tgt_valid).packed
-        return knn_kernel(src.detach().contiguous(), packed)
+        prep = tgt if isinstance(tgt, KnnTargets) else prepare_targets(tgt, tgt_valid)
+        return knn_kernel(src.detach().contiguous(), prep.packed, prep.limit)
     if isinstance(tgt, KnnTargets):
         return knn_reference(src, tgt.tgt, tgt.valid)
     return knn_reference(src, tgt, tgt_valid)

@@ -66,14 +66,51 @@ def test_knn_kernel_edge_cases(cuda_device):
     assert int(i.max()) < 300
     dp, ip = knn_reference(src, tgt)
     assert torch.equal(d, dp) and torch.equal(i, ip)
+    for T in (256, 5120):  # every run of 8 targets the same: the first run keeps the tie
+        d, i = knn(src, tgt[:, :8].repeat(1, T // 8, 1))
+        assert int(i.max()) < 8
+
+
+# (B, S, T, valid counts of a prefix, or None for 30% invalid and scattered)
+KNN_LAYOUTS = {
+    "scannet prefix": (2, 4800, 19456, [6229, 6229]),
+    "golden prefix": (2, 1200, 5120, [1776, 1060]),
+    "limit 0 beside a full entry": (2, 1200, 5120, [5120, 0]),
+    "ragged": (3, 1000, 1000, None),
+    "T=1": (3, 77, 1, None),
+    "S=1": (3, 1, 5000, None),
+    "large T": (2, 1200, 200_000, None),
+}
+
+
+@pytest.mark.parametrize("layout", list(KNN_LAYOUTS))
+def test_knn_kernel_layouts_equal_plain_version(cuda_device, layout):
+    """The main path's valid prefix, an empty batch entry, ragged and large
+    sizes: one launch a call, bit-equal to the plain version."""
+    B, S, T, counts = KNN_LAYOUTS[layout]
+    gen = np.random.default_rng(S + T)
+    src, tgt = _cloud(gen, (B, S, 3), cuda_device), _cloud(gen, (B, T, 3), cuda_device)
+    if counts is None:
+        valid = torch.from_numpy(gen.random((B, T)) > 0.3).to(cuda_device)
+    else:
+        valid = torch.arange(T, device=cuda_device)[None, :] < torch.tensor(counts, device=cuda_device)[:, None]
+    before = knn_kernel.launches
+    d, i = knn(src, tgt, valid)
+    assert knn_kernel.launches == before + 1
+    dp, ip = knn_reference(src, tgt, valid)
+    assert torch.equal(i, ip) and torch.equal(d, dp)
 
 
 def test_knn_kernel_rejects_what_it_does_not_take(cuda_device):
     src = torch.rand((1, 8, 3), dtype=torch.float64, device=cuda_device)
     with pytest.raises(TypeError):
         knn(src, src)
+    limit = torch.full((1,), 8, dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError):
-        knn_kernel(torch.rand((1, 8, 3), device=cuda_device), torch.rand((1, 8, 3), device=cuda_device))
+        knn_kernel(torch.rand((1, 8, 3), device=cuda_device), torch.rand((1, 8, 3), device=cuda_device), limit)
+    with pytest.raises(TypeError):
+        knn_kernel(torch.rand((1, 8, 3), device=cuda_device), torch.rand((1, 8, 4), device=cuda_device),
+                   limit.long())
 
 
 def _winner_inputs(gen, B, N, P, dev, ties=False):

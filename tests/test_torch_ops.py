@@ -7,6 +7,8 @@ first minimum. The CUDA kernel against the plain version needs the card:
 those tests are in test_torch_cuda.py.
 """
 
+import pathlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,6 +18,8 @@ from gradslam_tpu.ops import knn as jax_knn
 from gradslam_tpu.ops import knn_reference as jax_knn_reference
 from gradslam_tpu.ops import prepare_targets as jax_prepare_targets
 from gradslam_tpu.ops.masking import compact_masked as jax_compact_masked
+from gradslam_tpu_torch import PointFusion, RGBDImages
+from gradslam_tpu_torch.odometry import icputils
 from gradslam_tpu_torch.ops import (
     KnnTargets,
     compact_masked,
@@ -115,3 +119,79 @@ def test_knn_cpu_tensors_never_launch_the_kernel():
     knn(torch.rand((1, 8, 3)), torch.rand((1, 9, 3)))
     assert knn_kernel.launches == before
 
+
+
+def _mask(kind, B, T, rng):
+    if kind == "random":
+        return rng.random((B, T)) > 0.4
+    if kind == "prefix":
+        return np.arange(T)[None, :] < np.array([T // 3, T, 0][:B])[:, None]
+    if kind == "all invalid":
+        return np.zeros((B, T), bool)
+    return np.ones((B, T), bool)
+
+
+@pytest.mark.parametrize("kind", ["random", "prefix", "all invalid", "all valid"])
+def test_prepare_targets_limit(kind):
+    """``limit`` is one past the last valid target (0 with none), (B,) int32."""
+    rng = np.random.default_rng(7)
+    valid = _mask(kind, 3, 97, rng)
+    prep = prepare_targets(torch.from_numpy(rng.random((3, 97, 3)).astype(np.float32)),
+                           torch.from_numpy(valid))
+    want = [int(np.flatnonzero(v).max()) + 1 if v.any() else 0 for v in valid]
+    assert prep.limit.dtype == torch.int32 and prep.limit.tolist() == want
+    if kind == "prefix":
+        assert prep.limit.tolist() == valid.sum(1).tolist()  # the main path's layout
+    unmasked = prepare_targets(torch.zeros((3, 97, 3)))
+    assert unmasked.limit.tolist() == [97] * 3
+
+
+@pytest.mark.parametrize("counts", [(1776, 1776), (1060, 2088), (5120, 0), (1, 4)])
+def test_knn_prefix_layout_equals_jax(counts):
+    """The main path's layout: the valid targets a prefix of the buffer."""
+    rng = np.random.default_rng(sum(counts))
+    T = 5120
+    src = rng.uniform(-2, 2, (2, 300, 3)).astype(np.float32)
+    tgt = rng.uniform(-2, 2, (2, T, 3)).astype(np.float32)
+    valid = np.arange(T)[None, :] < np.array(counts)[:, None]
+    prep = prepare_targets(torch.from_numpy(tgt), torch.from_numpy(valid))
+    assert prep.limit.tolist() == list(counts)
+    dt, it = knn(torch.from_numpy(src), prep)
+    dj, ij = jax_knn(jnp.asarray(src), jax_prepare_targets(jnp.asarray(tgt), jnp.asarray(valid)),
+                     use_pallas=False)
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+    np.testing.assert_array_equal(dt.numpy(), np.asarray(dj))
+    assert (it.numpy() < np.maximum(np.array(counts), 1)[:, None]).all()
+
+
+def test_knn_on_golden_clip_main_path_inputs_equals_jax(monkeypatch):
+    """The sources and targets of the first KNN call of each frame step of
+    ``PointFusion()`` on the golden clip, as ``_localize`` builds them:
+    the valid targets are a prefix (``limit`` is their count), and the port
+    and JAX give equal indices and equal distances, to the last bit."""
+    data = pathlib.Path(__file__).parent / "data" / "msrd_b2s3"
+    c, d, K = (np.load(data / f"{n}.npy").astype(np.float32) for n in ("colors", "depths", "intrinsics"))
+    calls = []
+    real_knn = icputils.knn
+
+    def recording_knn(src, tgt, tgt_valid=None):
+        if len(calls) % 2 == 0:  # numiters=1: two calls a frame step, keep the first
+            calls.append((src.detach().clone(), tgt))
+        else:
+            calls.append(None)
+        return real_knn(src, tgt, tgt_valid)
+
+    monkeypatch.setattr(icputils, "knn", recording_knn)
+    PointFusion(numiters=1, device="cpu")(RGBDImages(c, d, K, device="cpu"))
+    firsts = [call for call in calls if call is not None]
+    assert len(firsts) == c.shape[1] - 1
+    for src, prep in firsts:
+        valid = prep.valid.numpy()
+        assert prep.limit.tolist() == valid.sum(1).tolist()
+        assert 0 < valid.sum() < valid.size
+        dt, it = knn(src, prep)
+        dj, ij = jax_knn(jnp.asarray(src.numpy()),
+                         jax_prepare_targets(jnp.asarray(prep.tgt.numpy()), jnp.asarray(valid)),
+                         use_pallas=False)
+        np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+        np.testing.assert_array_equal(dt.numpy(), np.asarray(dj))
