@@ -21,9 +21,13 @@ full-arena fusion) and ``PointFusion(assoc='projective', assoc_window=...)``
   3. the golden clip (B=2, L=10, 120x160) against the reference goldens;
   4. the ScanNet geometry (B=2, L=16, 240x320, a 1.23M-row arena);
   5. the per-pixel winner kernel against its plain version at the diag's
-     and the fusion paths' shapes, with crafted ties and edge cases, with
-     its time, the plain version's, ``scatter_reduce_``'s as a yardstick,
-     and its bound;
+     and the fusion paths' shapes, at 480x640, at edge cases (crafted ties,
+     every candidate dumped or on one pixel, pixels out of range, a ragged
+     P, three batch entries, slots near 2^31), and on the main path's own
+     inputs (every selection of a run of each of the four paths below),
+     with its time, the plain version's, ``scatter_reduce_``'s as a
+     yardstick and its bound (the design's own bytes and the blocks it
+     took in the log);
   6. projective PointFusion on the golden clip (window 2*H*W) against the
      clip's poses;
   7. projective PointFusion at the ScanNet geometry (window 3*H*W, active
@@ -450,16 +454,94 @@ def _fusion_candidates(gen, B, N, P, CAP, dev, variant):
     return torch.from_numpy(pix).to(dev), k_hi, k_lo, torch.from_numpy(slot).to(dev)
 
 
-def _winner_case(name, args, P, sentinel):
+def _rmw_inputs(dev):
+    """The ``pallas_rmw`` contract at the diag's shapes: random pixels and
+    keys in [0, 2^20), ``k_lo = 0``, ``slot = row``, ``sentinel = N``;
+    returns (args, P, sentinel)."""
+    B, A, HW = 2, 153_600, 76_800
+    rng = np.random.default_rng(0)
+    pix = torch.from_numpy(rng.integers(0, HW, size=(B, A)).astype(np.int32)).to(dev)
+    key = torch.from_numpy(rng.integers(0, 2**20, size=(B, A)).astype(np.int32)).to(dev)
+    row = torch.arange(A, dtype=torch.int32, device=dev).expand(B, A).contiguous()
+    return (pix, key, torch.zeros_like(key), row), HW, A
+
+
+def _winner_case(name, args, P, sentinel, log=True):
     from gradslam_tpu_torch.ops import pixel_winner_reference, winner_kernel
 
     got = winner_kernel(*args, P, sentinel)
     ref = pixel_winner_reference(*args, P, sentinel)
     torch.cuda.synchronize()
     _check(torch.equal(got, ref), f"winner {name}: differs from the plain version")
-    _log(f"winner {name}: N={args[0].shape[1]} P={P}: equal to the plain version, "
-         f"{int((got != sentinel).sum())} pixels won")
+    B, N = args[0].shape
+    if log:
+        _log(f"winner {name}: B={B} N={N} P={P} blocks {winner_kernel.grid(B, N, P, winner_kernel.max_blocks())}: "
+             f"equal to the plain version, {int((got != sentinel).sum())} pixels won")
     return got
+
+
+def winner_paths():
+    """(cell, (colors, depths, K), PointFusion options) of the four paths
+    as phases 3, 4, 6 and 7 drive them."""
+    golden, scannet = _golden_clip(10), _scannet_clip(16)
+    HW, HW4 = 120 * 160, 240 * 320
+    return (
+        ("golden", golden, {}),
+        ("scannet", scannet, {}),
+        ("projective golden", golden, dict(assoc="projective", assoc_window=2 * HW)),
+        ("projective scannet", scannet,
+         dict(assoc="projective", assoc_window=3 * HW4, active_capacity=(3 * HW4) // 2)),
+    )
+
+
+def main_path_winner_inputs(colors, depths, K, dev, **options):
+    """The ((pix, k_hi, k_lo, slot), P, sentinel) of every ``pixel_winner``
+    call of a ``PointFusion(**options)`` run: one per fusion step."""
+    from gradslam_tpu_torch import PointFusion, RGBDImages
+    from gradslam_tpu_torch.slam import fusionutils
+
+    calls = []
+    real = fusionutils.pixel_winner
+
+    def recording(pix, k_hi, k_lo, slot, num_pixels, sentinel):
+        args = tuple(t.contiguous().clone() for t in (pix, k_hi, k_lo, slot))
+        calls.append((args, int(num_pixels), int(sentinel)))
+        return real(pix, k_hi, k_lo, slot, num_pixels, sentinel)
+
+    fusionutils.pixel_winner = recording
+    try:
+        PointFusion(device=dev, **options)(RGBDImages(colors, depths, K, device=dev))
+    finally:
+        fusionutils.pixel_winner = real
+    return calls
+
+
+def _winner_input_stats(args, P):
+    """What the data does to the kernel's atomics: candidates in [0, P),
+    the distinct pixels they hit, and the share of neighbouring in-range
+    candidates whose pixels are at most one apart (arena order follows the
+    frame's pixel order)."""
+    pix = args[0]
+    inr = (pix >= 0) & (pix < P)
+    n_in = int(inr.sum())
+    distinct = sum(int(torch.unique(pix[b][inr[b]]).numel()) for b in range(pix.shape[0]))
+    near = []
+    for b in range(pix.shape[0]):
+        p = pix[b][inr[b]].long()
+        near.append(((p[1:] - p[:-1]).abs() <= 1).float().mean().item() if p.numel() > 1 else 0.0)
+    return f"{n_in} of {pix.numel()} in range, {distinct} pixels hit, {min(near):.4f}-{max(near):.4f} of neighbours adjacent"
+
+
+def _winner_design_bytes(args, P):
+    """The bytes the kernel moves from L2 or HBM: the four int32 inputs
+    read once (the candidates stay in registers between the folds at the
+    timed shapes); for each candidate in [0, P), an 8-byte atomic on its
+    pixel's key and a read of it in the second fold; the output filled and
+    the other key table reset, 4 + 8 bytes a pixel."""
+    pix = args[0]
+    B, N = pix.shape
+    n_in = int(((pix >= 0) & (pix < P)).sum())
+    return 16 * B * N + 16 * n_in + 12 * B * P
 
 
 def winner_phase(dev):
@@ -469,17 +551,10 @@ def winner_phase(dev):
     from gradslam_tpu_torch.ops import pixel_winner_reference, winner_kernel
 
     gen = np.random.default_rng(0)
-    # the pallas_rmw contract at the diag's shapes: k_hi = key, k_lo = 0,
-    # slot = row, sentinel = N
-    B, A, HW = 2, 153_600, 76_800
-    rng = np.random.default_rng(0)
-    pix = torch.from_numpy(rng.integers(0, HW, size=(B, A)).astype(np.int32)).to(dev)
-    key = torch.from_numpy(rng.integers(0, 2**20, size=(B, A)).astype(np.int32)).to(dev)
-    zero = torch.zeros_like(key)
-    row = torch.arange(A, dtype=torch.int32, device=dev).expand(B, A).contiguous()
-    rmw_args = (pix, key, zero, row)
+    rmw_args, HW, A = _rmw_inputs(dev)
     got = _winner_case("pallas_rmw contract (diag shapes)", rmw_args, HW, A)
-    _check(torch.equal(got, _library_rmw(pix, key, row, HW, A)), "winner: scatter_reduce_ yardstick differs")
+    _check(torch.equal(got, _library_rmw(rmw_args[0], rmw_args[1], rmw_args[3], HW, A)),
+           "winner: scatter_reduce_ yardstick differs")
 
     timed = {}
     for name, B, N, P, CAP in WINNER_SHAPES:
@@ -496,8 +571,34 @@ def winner_phase(dev):
     one = torch.full_like(args[0], 4321)
     got = _winner_case("one pixel takes every candidate", (one, *args[1:]), P, CAP)
     _check(int((got != CAP).sum()) == B, "winner one pixel: not one winner per batch entry")
+    timed["one pixel takes every candidate (hot pixel)"] = ((one, *args[1:]), P, CAP)
+    wild = torch.from_numpy(gen.integers(-P, 2 * P, (B, N)).astype(np.int32)).to(dev)
+    _winner_case("negative and too large pixels", (wild, *args[1:]), P, CAP)
+    # full 480x640 frames (N = 2*P), a ragged P, three batch
+    # entries, slots up to 2^31 - 2 with the sentinel 2^31 - 1
+    H, W = 480, 640
+    args = _fusion_candidates(gen, 2, 2 * H * W, H * W, 16 * H * W, dev, "both ties")
+    _winner_case("480x640, both ties", args, H * W, 16 * H * W)
+    timed["480x640 N=2P"] = (args, H * W, 16 * H * W)
+    for name, B, N, P in (("ragged P", 2, 153_600, 76_801), ("B=3 ragged P", 3, 40_000, 19_999)):
+        _winner_case(name, _fusion_candidates(gen, B, N, P, 10 * N, dev, "ray ties"), P, 10 * N)
+    big = torch.from_numpy(gen.integers(2**31 - 2**20, 2**31 - 1, (2, 38_400)).astype(np.int32)).to(dev)
+    args = _fusion_candidates(gen, 2, 38_400, 19_200, 10 * 19_200, dev, "ccount ties")
+    _winner_case("slots near 2^31", (*args[:3], big), 19_200, 2**31 - 1)
 
     timed["pallas_rmw contract (diag shapes)"] = (rmw_args, HW, A)
+    # the main path's own inputs: every selection of a run of each of the
+    # four paths, the last fusion step of each timed
+    for cell, (colors, depths, K), options in winner_paths():
+        calls = main_path_winner_inputs(colors, depths, K, dev, **options)
+        for n, (args, P, CAP) in enumerate(calls):
+            _winner_case(f"{cell} main path, fusion step {n + 1}", args, P, CAP, log=False)
+        args, P, CAP = calls[-1]
+        _log(f"winner {cell} main path: {len(calls)} selections equal to the plain version; last: "
+             f"B={args[0].shape[0]} N={args[0].shape[1]} P={P}, {_winner_input_stats(args, P)}")
+        timed[f"{cell} main path, last fusion step"] = calls[-1]
+        del calls
+
     timings = {}
     for name, (args, P, CAP) in timed.items():
         B, N = args[0].shape
@@ -508,24 +609,24 @@ def winner_phase(dev):
         else:
             library_ms = _time_ms(lambda: _library_winner(*args, P, CAP), reps=20)
         # the function's bytes: four int32 inputs read once, the int32 table
-        # written once; the two-pass design also reads pix, k_hi and k_lo
-        # again and writes and reads the 8-byte key table
-        nbytes = B * N * 4 * 4 + B * P * 4
-        design_bytes = B * N * (12 + 16) + B * P * (8 + 8 + 4)
-        bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        # written once; the design's own bytes and its grid go to the log
+        bound_ms = 1e3 * (B * N * 4 * 4 + B * P * 4) / HBM_BYTES_PER_S
         timings[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                             bound_by="bytes", two_pass_bytes_ms=1e3 * design_bytes / HBM_BYTES_PER_S)
+                             bound_by="bytes")
+        design_ms = 1e3 * _winner_design_bytes(args, P) / HBM_BYTES_PER_S
         _log(f"winner timing {name} B={B} N={N} P={P}: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
-             f"scatter_reduce_ {library_ms:.6f} ms, bound {bound_ms:.6f} ms (bytes), "
-             f"two-pass bytes {1e3 * design_bytes / HBM_BYTES_PER_S:.6f} ms")
+             f"scatter_reduce_ {library_ms:.6f} ms, bound {bound_ms:.6f} ms (bytes), design's bytes "
+             f"{design_ms:.6f} ms, {winner_kernel.grid(B, N, P, winner_kernel.max_blocks())} blocks")
+    main = WINNER_SHAPES[1][0]
     entry = dict(
         name="pixel_winner",
         route="cuda",
         source="gradslam_tpu_torch/csrc/winner.cu",
         replaces="tools/diag_winner_radix.py:110",
         max_abs_err=0,
-        **timings[WINNER_SHAPES[1][0]],
+        **timings[main],
         shape="B=2 N=153600 P=76800 (the diag's shapes, fusion key)",
+        other_shapes={case: t for case, t in timings.items() if case != main},
     )
     return entry
 

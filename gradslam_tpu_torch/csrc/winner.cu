@@ -16,95 +16,173 @@
 // there is none. Candidates with pix outside [0, P) never win. Slots lie in
 // [0, sentinel).
 //
-// Design: two passes of one thread per candidate.
-//   - Pass 1 folds the 64-bit key (u64)k_hi << 32 | k_lo into a (B, P) u64
-//     table with atomicMin. The table starts at all ones (cudaMemsetAsync
-//     0xff); the same pass fills the output table with `sentinel`.
-//   - Pass 2: each candidate whose key equals its pixel's table entry folds
-//     its slot into the output table with a 32-bit atomicMin.
-// atomicMin is commutative, so the result does not depend on block order:
-// it is exact and the same on every run. A single pass (a 128-bit
-// compare-and-swap loop, or a key packed with a bounded slot width) is
-// later work.
+// What bounds it: not arithmetic, and not HBM bytes (16 B a candidate and
+// 4 B a pixel, about 2 us at the ScanNet geometry, usually still in L2),
+// but the fixed cost of each device operation (a few microseconds: the
+// launch, and the grid barrier between the two folds) and the L2 atomics of
+// the two folds. So the design makes one launch per selection, with no
+// memset:
 //
-// What bounds it: bytes and L2 atomics, not arithmetic. Each candidate
-// reads 12 bytes in pass 1 and 16 in pass 2 and issues one or two atomics
-// that resolve in L2; each pixel costs 8 bytes of key table and 4 of output.
-// There is no arithmetic to speak of.
+//   1. One cooperative launch, no more blocks than the card holds at once,
+//      a grid-stride loop over the (B * N) candidates. Each thread keeps
+//      its first kKeep candidates' (pixel, key, slot) in registers for the
+//      second fold; the rest are read again there (from L2).
+//   2. Fold the keys: a 64-bit atomicMin of (u64)k_hi << 32 | k_lo into a
+//      (B, P) u64 table `best` in global memory (native on global memory;
+//      Hopper has no 64-bit min on shared memory, which is a compare-and-
+//      swap loop there). The same phase fills `out` with the sentinel.
+//   3. grid.sync(), then fold the slots: each candidate whose key equals its
+//      pixel's entry folds its slot into `out` with a 32-bit atomicMin.
+//   4. No memset: `best` is all ones on entry. The wrapper keeps two such
+//      tables a stream and alternates them; phase 2 also resets to all ones
+//      the first `n_other` entries of the other table, which the previous
+//      call on the stream left dirty. So one grid barrier is enough.
+//
+// When every candidate of a warp's round lands on one pixel (a hot pixel),
+// the warp folds in registers first and issues one atomic. atomicMin
+// commutes with itself and the table values only fall, so the result is
+// exact and the same for any block order and on every run.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <climits>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr long long kMaxBlocks = 132LL * 32;  // grid-stride beyond this
+constexpr int kThreads = 512;
+constexpr int kKeep = 2;  // candidates a thread keeps in registers between the folds
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ unsigned long long pack_key(int hi, int lo) {
   return (static_cast<unsigned long long>(static_cast<unsigned int>(hi)) << 32) |
          static_cast<unsigned int>(lo);
 }
 
-__global__ void __launch_bounds__(kThreads)
-winner_fold_keys(const int* __restrict__ pix, const int* __restrict__ k_hi,
-                 const int* __restrict__ k_lo, unsigned long long* __restrict__ best,
-                 int* __restrict__ out, long long n_cand, long long n_out, int N,
-                 int P, int sentinel) {
-  const long long total = n_cand > n_out ? n_cand : n_out;
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  for (long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-       i < total; i += stride) {
-    if (i < n_out) out[i] = sentinel;
-    if (i < n_cand) {
-      const int p = pix[i];
-      if (static_cast<unsigned int>(p) < static_cast<unsigned int>(P)) {
-        const long long b = i / N;
-        atomicMin(best + b * P + p, pack_key(k_hi[i], k_lo[i]));
-      }
-    }
+// True when the warp's lanes in mask `m`, more than one, all hold the same t.
+__device__ __forceinline__ bool one_pixel(unsigned m, bool in, long long t) {
+  const long long t0 = __shfl_sync(kFull, t, __ffs(m) - 1);
+  return __popc(m) > 1 && __all_sync(kFull, !in || t == t0);
+}
+
+// Fold 1 for one warp round: every lane with `in` folds its key into
+// best[t]. Warp-uniform; all 32 lanes call it.
+__device__ __forceinline__ void fold_key(bool in, long long t, unsigned long long key,
+                                         unsigned long long* best) {
+  const unsigned m = __ballot_sync(kFull, in);
+  if (m == 0) return;
+  if (one_pixel(m, in, t)) {
+    unsigned long long k = in ? key : ~0ull;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) k = min(k, __shfl_xor_sync(kFull, k, o));
+    if ((threadIdx.x & 31) == __ffs(m) - 1) atomicMin(best + t, k);
+  } else if (in) {
+    atomicMin(best + t, key);
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-winner_fold_slots(const int* __restrict__ pix, const int* __restrict__ k_hi,
-                  const int* __restrict__ k_lo, const int* __restrict__ slot,
-                  const unsigned long long* __restrict__ best, int* __restrict__ out,
-                  long long n_cand, int N, int P) {
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  for (long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-       i < n_cand; i += stride) {
-    const int p = pix[i];
-    if (static_cast<unsigned int>(p) >= static_cast<unsigned int>(P)) continue;
-    const long long t = (i / N) * P + p;
-    if (best[t] == pack_key(k_hi[i], k_lo[i])) atomicMin(out + t, slot[i]);
+// Fold 2 for one warp round: every lane with `in` whose key is best[t]
+// folds its slot into out[t].
+__device__ __forceinline__ void fold_slot(bool in, long long t, unsigned long long key, int slot,
+                                          const unsigned long long* best, int* out) {
+  const bool hit = in && best[t] == key;
+  const unsigned m = __ballot_sync(kFull, hit);
+  if (m == 0) return;
+  if (one_pixel(m, hit, t)) {
+    const int s = __reduce_min_sync(kFull, hit ? slot : INT_MAX);
+    if ((threadIdx.x & 31) == __ffs(m) - 1) atomicMin(out + t, s);
+  } else if (hit) {
+    atomicMin(out + t, slot);
   }
 }
 
-int blocks_for(long long n) {
-  long long blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  return static_cast<int>(blocks < 1 ? 1 : blocks);
+// A candidate i of the flattened (B, N) inputs: in (pix in [0, P)), its
+// table entry t = b * P + pix, and its key.
+struct Cand {
+  bool in;
+  long long t;
+  unsigned long long key;
+};
+
+__device__ __forceinline__ Cand candidate(const int* pix, const int* k_hi, const int* k_lo,
+                                          long long i, long long n_cand, int N, int P) {
+  const int p = i < n_cand ? pix[i] : -1;
+  const bool in = static_cast<unsigned>(p) < static_cast<unsigned>(P);
+  return Cand{in, in ? (i / N) * P + p : 0, in ? pack_key(k_hi[i], k_lo[i]) : 0ull};
+}
+
+// Grid: blocks (all resident, cooperative launch); kThreads threads.
+__global__ void __launch_bounds__(kThreads)
+winner_grid(const int* __restrict__ pix, const int* __restrict__ k_hi,
+            const int* __restrict__ k_lo, const int* __restrict__ slot,
+            unsigned long long* __restrict__ best, unsigned long long* __restrict__ other,
+            long long n_other, int* __restrict__ out, int B, int N, int P, int sentinel) {
+  cg::grid_group grid = cg::this_grid();
+  const long long n_cand = static_cast<long long>(B) * N;
+  const long long n_out = static_cast<long long>(B) * P;
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  const long long tid = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+
+  // 2. fold the keys; fill the output; reset the previous call's table
+  for (long long i = tid; i < n_out; i += stride) out[i] = sentinel;
+  for (long long i = tid; i < n_other; i += stride) other[i] = ~0ull;
+  Cand kept[kKeep];
+  int kept_slot[kKeep];
+#pragma unroll
+  for (int u = 0; u < kKeep; ++u) {
+    const long long i = tid + u * stride;
+    kept[u] = candidate(pix, k_hi, k_lo, i, n_cand, N, P);
+    kept_slot[u] = kept[u].in ? slot[i] : 0;
+  }
+#pragma unroll
+  for (int u = 0; u < kKeep; ++u) fold_key(kept[u].in, kept[u].t, kept[u].key, best);
+  // the rest, a warp-uniform loop so that all lanes fold together
+  for (long long w = tid - lane + kKeep * stride; w < n_cand; w += stride) {
+    const Cand c = candidate(pix, k_hi, k_lo, w + lane, n_cand, N, P);
+    fold_key(c.in, c.t, c.key, best);
+  }
+  grid.sync();
+
+  // 3. fold the slots of the candidates whose key is their pixel's
+#pragma unroll
+  for (int u = 0; u < kKeep; ++u) fold_slot(kept[u].in, kept[u].t, kept[u].key, kept_slot[u], best, out);
+  for (long long w = tid - lane + kKeep * stride; w < n_cand; w += stride) {
+    const Cand c = candidate(pix, k_hi, k_lo, w + lane, n_cand, N, P);
+    fold_slot(c.in, c.t, c.key, c.in ? slot[w + lane] : 0, best, out);
+  }
 }
 
 }  // namespace
 
-// pix, k_hi, k_lo, slot (B, N) int32; best (B, P) uint64 scratch; out (B, P)
-// int32; all contiguous on one device. Launches on `stream` and returns
-// cudaGetLastError().
+// How many blocks of the kernel the current device holds at once (the most
+// a cooperative launch may have) into *blocks. Returns a cudaError_t.
+extern "C" int gst_pixel_winner_max_blocks(int* blocks) {
+  *blocks = 0;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, winner_grid, kThreads, 0);
+  if (err == cudaSuccess) *blocks = sms * per_sm;
+  return static_cast<int>(err);
+}
+
+// pix, k_hi, k_lo, slot (B, N) int32; best (B * P) uint64, all ones; other
+// (n_other) uint64, reset to all ones here; out (B, P) int32; all
+// contiguous on one device. One cooperative launch of `blocks` blocks on
+// `stream`; returns the launch's own cudaError_t, not an error left pending
+// by an earlier call (a launch the card refuses never runs).
 extern "C" int gst_pixel_winner(const int* pix, const int* k_hi, const int* k_lo,
-                                const int* slot, unsigned long long* best, int* out,
-                                int B, int N, int P, int sentinel, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long n_cand = static_cast<long long>(B) * N;
-  const long long n_out = static_cast<long long>(B) * P;
-  if (n_out == 0) return static_cast<int>(cudaGetLastError());
-  cudaError_t err = cudaMemsetAsync(best, 0xff, n_out * sizeof(unsigned long long), st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long total = n_cand > n_out ? n_cand : n_out;
-  winner_fold_keys<<<blocks_for(total), kThreads, 0, st>>>(
-      pix, k_hi, k_lo, best, out, n_cand, n_out, N, P, sentinel);
-  if (n_cand > 0) {
-    winner_fold_slots<<<blocks_for(n_cand), kThreads, 0, st>>>(
-        pix, k_hi, k_lo, slot, best, out, n_cand, N, P);
-  }
-  return static_cast<int>(cudaGetLastError());
+                                const int* slot, unsigned long long* best,
+                                unsigned long long* other, long long n_other, int* out, int B,
+                                int N, int P, int sentinel, int blocks, void* stream) {
+  if (B <= 0 || P <= 0) return static_cast<int>(cudaSuccess);
+  if (N < 0 || blocks < 1 || n_other < 0) return static_cast<int>(cudaErrorInvalidValue);
+  void* args[] = {&pix, &k_hi, &k_lo, &slot, &best, &other, &n_other, &out, &B, &N, &P, &sentinel};
+  return static_cast<int>(
+      cudaLaunchCooperativeKernel(reinterpret_cast<void*>(winner_grid), dim3(blocks),
+                                  dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream)));
 }

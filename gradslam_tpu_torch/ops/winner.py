@@ -9,10 +9,13 @@ table, is ``tools/diag_winner_radix.py::pallas_rmw``, which Mosaic never
 lowered on the TPU.
 
 On a CUDA tensor :func:`pixel_winner` launches the hand-written Hopper
-kernel in ``csrc/winner.cu`` (two passes of 64- and 32-bit ``atomicMin``
-into per-pixel tables); on a CPU tensor it runs
-:func:`pixel_winner_reference`, the sort form of the same function. There
-is no fallback between the two: a CUDA input that the kernel does not take
+kernel in ``csrc/winner.cu``: one cooperative launch a selection, two folds
+(a 64-bit ``atomicMin`` of the key into a per-pixel table, then a 32-bit one
+of the slot among the key's ties) with one grid barrier between them, and
+no memset: the wrapper keeps two all-ones tables a stream, and each call
+resets the one the call before it used. On a CPU tensor it runs
+:func:`pixel_winner_reference`, the sort form of the same function. There is
+no fallback between the two: a CUDA input that the kernel does not take
 raises. The result is exact on both.
 """
 
@@ -91,16 +94,56 @@ def pixel_winner_reference(pix, k_hi, k_lo, slot, num_pixels: int, sentinel: int
     return table.scatter(1, dest, slot_sorted)[:, :P]
 
 
+# the kernel's fixed sizes (csrc/winner.cu): threads a block, candidates a
+# thread keeps in registers between the folds
+_THREADS = 512
+_KEEP = 2
+
+
+class _Tables:
+    """The two per-pixel key tables of one stream, all ones between uses.
+
+    A call folds into the clean one (:meth:`take`) and resets the ``n``
+    entries of the other that the call before it left dirty; :meth:`done`
+    then records that the table it folded into holds ``n`` dirty entries and
+    swaps the two. Calls on one stream run in order, so a table is never
+    reset while a call still reads it.
+    """
+
+    def __init__(self):
+        self.tables = [None, None]
+        self.dirty = [0, 0]
+        self.cur = 0
+
+    def take(self, n: int, device):
+        """(clean table of at least n entries, other table, its dirty count)."""
+        c = self.cur
+        if self.tables[c] is None or self.tables[c].numel() < n:
+            self.tables[c] = torch.full((n,), -1, dtype=torch.int64, device=device)
+        other = self.tables[1 - c]
+        if other is None:
+            return self.tables[c], self.tables[c], 0
+        return self.tables[c], other, self.dirty[1 - c]
+
+    def done(self, n: int):
+        c = self.cur
+        self.dirty[c], self.dirty[1 - c] = n, 0
+        self.cur = 1 - c
+
+
 class _WinnerKernel:
     """The CUDA kernel's wrapper: builds ``csrc/winner.cu`` at first use,
     checks its inputs, launches it on the current stream and counts its
-    launches (one per selection) in :attr:`launches`."""
+    launches (one per selection) in :attr:`launches`. Each call allocates
+    only its output; the key tables, two a stream, are kept across calls."""
 
     source = "winner.cu"
 
     def __init__(self):
         self.launches = 0
         self._fn = None
+        self._max_blocks = {}
+        self._tables = {}
 
     def load(self):
         """Loads the kernel's library, building it first if needed."""
@@ -109,14 +152,44 @@ class _WinnerKernel:
 
             lib = ctypes.CDLL(str(build(self.source)))
             fn = lib.gst_pixel_winner
-            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_void_p] + [
+                ctypes.c_int
+            ] * 5 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
+            lib.gst_pixel_winner_max_blocks.argtypes = [ctypes.POINTER(ctypes.c_int)]
+            lib.gst_pixel_winner_max_blocks.restype = ctypes.c_int
             self._lib, self._fn = lib, fn
         return self._fn
+
+    def max_blocks(self) -> int:
+        """The most blocks the current device holds at once: a cooperative
+        launch takes no more."""
+        dev = torch.cuda.current_device()
+        if dev not in self._max_blocks:
+            self.load()
+            n = ctypes.c_int(0)
+            err = self._lib.gst_pixel_winner_max_blocks(ctypes.byref(n))
+            if err != 0 or n.value < 1:
+                raise RuntimeError(f"winner kernel: occupancy query failed: cudaError {err}")
+            self._max_blocks[dev] = n.value
+        return self._max_blocks[dev]
+
+    @staticmethod
+    def grid(B: int, N: int, P: int, max_blocks: int) -> int:
+        """Blocks for a call's shapes, chosen on the card with
+        ``tools/winner_tiles.py``: enough that every thread keeps at most
+        ``_KEEP`` candidates and fills at most 4 output pixels, and no more
+        than the card holds at once."""
+        need = max(-(-B * N // (_THREADS * _KEEP)), -(-B * P // (_THREADS * 4)), 1)
+        return min(max_blocks, need)
 
     def __call__(self, pix, k_hi, k_lo, slot, num_pixels: int, sentinel: int):
         """(B, N) int32 contiguous CUDA tensors on one device ->
         (B, num_pixels) int32 winner slots."""
+        return self.launch(pix, k_hi, k_lo, slot, num_pixels, sentinel)
+
+    def launch(self, pix, k_hi, k_lo, slot, num_pixels: int, sentinel: int, blocks=None):
+        """One launch; ``blocks`` overrides :meth:`grid`'s choice."""
         ins = (pix, k_hi, k_lo, slot)
         dev = pix.device
         if not all(t.is_cuda and t.device == dev for t in ins):
@@ -131,17 +204,28 @@ class _WinnerKernel:
         P = int(num_pixels)
         if P < 0 or B * max(N, P) >= 2**31 or not -(2**31) <= sentinel < 2**31:
             raise ValueError(f"winner kernel: sizes out of range (B={B}, N={N}, P={P})")
-        fn = self.load()
         out = torch.empty((B, P), dtype=torch.int32, device=dev)
-        best = torch.empty((B, P), dtype=torch.int64, device=dev)
+        if B * P == 0:
+            return out
+        fn = self.load()
         with torch.cuda.device(dev):
+            most = self.max_blocks()
+            blocks = self.grid(B, N, P, most) if blocks is None else int(blocks)
+            if not 1 <= blocks <= most:
+                raise ValueError(f"winner kernel: {blocks} blocks, the card holds 1 to {most}")
             stream = torch.cuda.current_stream().cuda_stream
+            tables = self._tables.setdefault((dev.index, stream), _Tables())
+            best, other, n_other = tables.take(B * P, dev)
             err = fn(
-                pix.data_ptr(), k_hi.data_ptr(), k_lo.data_ptr(), slot.data_ptr(),
-                best.data_ptr(), out.data_ptr(), B, N, P, int(sentinel), stream,
+                pix.data_ptr(), k_hi.data_ptr(), k_lo.data_ptr(), slot.data_ptr(), best.data_ptr(),
+                other.data_ptr(), n_other, out.data_ptr(), B, N, P, int(sentinel), blocks, stream,
             )
         if err != 0:
+            # whatever the error, the next call on the stream starts from
+            # fresh all-ones tables
+            del self._tables[(dev.index, stream)]
             raise RuntimeError(f"winner kernel launch failed: cudaError {err}")
+        tables.done(B * P)
         self.launches += 1
         return out
 

@@ -148,6 +148,132 @@ def test_winner_kernel_edge_cases(cuda_device):
     assert (pixel_winner(empty, empty, empty, empty, 300, 7) == 7).all()
 
 
+@pytest.mark.parametrize("blocks", ["1", "7", "66", "132", "grid", "max"])
+def test_winner_kernel_grids_equal_plain_version(cuda_device, blocks):
+    """Every block count that tools/winner_tiles.py sweeps, at the diag's
+    shapes with ties: bit-equal to the plain version (with few blocks most
+    candidates are read again for the second fold). More blocks than the
+    card holds at once raise."""
+    B, N, P = 2, 153_600, 76_800
+    args = _winner_inputs(np.random.default_rng(11), B, N, P, cuda_device, ties=True)
+    winner_kernel.load()
+    most = winner_kernel.max_blocks()
+    n = {"grid": winner_kernel.grid(B, N, P, most), "max": most}.get(blocks) or int(blocks)
+    got = winner_kernel.launch(*args, P, N, blocks=n)
+    assert torch.equal(got, pixel_winner_reference(*args, P, N))
+    with pytest.raises(ValueError):
+        winner_kernel.launch(*args, P, N, blocks=most + 1)
+
+
+def test_winner_kernel_tables_stay_clean_across_calls(cuda_device):
+    """The key tables are reset by the call after the one that used them:
+    calls of growing, shrinking and growing sizes on one stream, each
+    bit-equal to the plain version."""
+    gen = np.random.default_rng(12)
+    for B, N, P in ((2, 38_400, 19_200), (2, 153_600, 76_800), (1, 999, 7), (3, 40_000, 19_999),
+                    (2, 153_600, 76_800), (2, 38_400, 19_200)):
+        args = _winner_inputs(gen, B, N, P, cuda_device, ties=True)
+        assert torch.equal(pixel_winner(*args, P, N), pixel_winner_reference(*args, P, N))
+
+
+# (B, N, P, pixel draw): "range" draws from [0, P], "wild" from [-P, 2P)
+WINNER_EDGES = {
+    "480x640 N=2P": (2, 614_400, 307_200, "range"),
+    "ragged P": (2, 153_600, 76_801, "range"),
+    "B=1": (1, 153_600, 76_800, "range"),
+    "B=3 ragged": (3, 40_000, 19_999, "range"),
+    "pixels out of range": (2, 38_400, 19_200, "wild"),
+}
+
+
+@pytest.mark.parametrize("case", list(WINNER_EDGES))
+def test_winner_kernel_shapes_equal_plain_version(cuda_device, case):
+    B, N, P, draw = WINNER_EDGES[case]
+    gen = np.random.default_rng(N + P)
+    pix, k_hi, k_lo, slot = _winner_inputs(gen, B, N, P, cuda_device, ties=True)
+    if draw == "wild":
+        pix = torch.from_numpy(gen.integers(-P, 2 * P, (B, N)).astype(np.int32)).to(cuda_device)
+    got = pixel_winner(pix, k_hi, k_lo, slot, P, N)
+    assert torch.equal(got, pixel_winner_reference(pix, k_hi, k_lo, slot, P, N))
+
+
+@pytest.mark.parametrize("hot", ["one pixel", "300 pixels"])
+def test_winner_kernel_hot_pixels(cuda_device, hot):
+    """Every candidate on one pixel, or on 300 pixels, with slots up to
+    2^31 - 2 and the sentinel 2^31 - 1."""
+    B, N, P = 2, 153_600, 76_800
+    gen = np.random.default_rng(5)
+    _, k_hi, k_lo, _ = _winner_inputs(gen, B, N, P, cuda_device, ties=True)
+    slot = torch.from_numpy(gen.integers(2**31 - 2**16, 2**31 - 1, (B, N)).astype(np.int32)).to(cuda_device)
+    if hot == "one pixel":
+        pix = torch.full((B, N), 4321, dtype=torch.int32, device=cuda_device)
+    else:
+        pix = torch.from_numpy(gen.integers(0, 300, (B, N)).astype(np.int32)).to(cuda_device)
+    got = pixel_winner(pix, k_hi, k_lo, slot, P, 2**31 - 1)
+    assert torch.equal(got, pixel_winner_reference(pix, k_hi, k_lo, slot, P, 2**31 - 1))
+
+
+def test_winner_kernel_after_a_refused_launch(cuda_device):
+    """A launch the card refuses (more blocks than it holds) leaves its
+    error pending in the kernel library's runtime. The calls after it
+    still launch, raise nothing and are bit-equal to the plain version."""
+    B, N, P = 2, 38_400, 19_200
+    gen = np.random.default_rng(13)
+    args = _winner_inputs(gen, B, N, P, cuda_device, ties=True)
+    pixel_winner(*args, P, N)
+    fn = winner_kernel.load()
+    out = torch.empty((B, P), dtype=torch.int32, device=cuda_device)
+    best = torch.full((B * P,), -1, dtype=torch.int64, device=cuda_device)
+    err = fn(*(t.data_ptr() for t in args), best.data_ptr(), best.data_ptr(), 0, out.data_ptr(), B, N, P, N,
+             winner_kernel.max_blocks() + 1, torch.cuda.current_stream().cuda_stream)
+    assert err != 0
+    for _ in range(3):
+        args = _winner_inputs(gen, B, N, P, cuda_device, ties=True)
+        assert torch.equal(pixel_winner(*args, P, N), pixel_winner_reference(*args, P, N))
+
+
+@pytest.mark.parametrize("assoc", ["knn", "projective"])
+def test_winner_kernel_on_the_main_paths_inputs(cuda_device, assoc):
+    """Every selection of a PointFusion run on the golden clip, captured as
+    the fusion step hands it to the kernel: bit-equal to the plain version."""
+    from gradslam_tpu_torch.slam import fusionutils
+
+    colors, depths, K = _clip()
+    calls, real = [], fusionutils.pixel_winner
+
+    def recording(*a):
+        calls.append(tuple(x.clone() if torch.is_tensor(x) else x for x in a))
+        return real(*a)
+
+    options = {"assoc": "projective", "assoc_window": 2 * 120 * 160} if assoc == "projective" else {}
+    fusionutils.pixel_winner = recording
+    try:
+        PointFusion(device=cuda_device, **options)(RGBDImages(colors, depths, K, device=cuda_device))
+    finally:
+        fusionutils.pixel_winner = real
+    assert len(calls) == colors.shape[1]
+    for pix, k_hi, k_lo, slot, P, sentinel in calls:
+        assert torch.equal(pixel_winner(pix, k_hi, k_lo, slot, P, sentinel),
+                           pixel_winner_reference(pix, k_hi, k_lo, slot, P, sentinel))
+
+
+def test_winner_kernel_is_one_device_operation(cuda_device):
+    """One selection is one CUDA kernel on the card: no memset, no other
+    kernel (the key tables were set up by the call before)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    args = _winner_inputs(np.random.default_rng(7), 2, 153_600, 76_800, cuda_device)
+    pixel_winner(*args, 76_800, 10**6)  # builds and loads the kernel, sets up the tables
+    torch.cuda.synchronize()
+    before = winner_kernel.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pixel_winner(*args, 76_800, 10**6)
+        torch.cuda.synchronize()
+    assert winner_kernel.launches == before + 1
+    device_ops = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(device_ops) == 1 and "winner_grid" in device_ops[0], device_ops
+
+
 def test_winner_kernel_rejects_what_it_does_not_take(cuda_device):
     x = torch.zeros((2, 8), dtype=torch.int32, device=cuda_device)
     with pytest.raises(TypeError):

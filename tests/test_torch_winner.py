@@ -162,3 +162,47 @@ def test_cpu_tensors_take_the_plain_version():
     assert TW.winner_kernel.launches == before
     with pytest.raises(ValueError):
         TW.winner_kernel(pix, k, k, pix, 2, 9)  # the kernel takes CUDA tensors only
+
+
+# (B, N, P) the fusion paths give the kernel, and edge cases: golden and
+# ScanNet geometry (exact: N = 2*H*W; projective: the uncompacted view at
+# golden, the gated buffer of 1.5*H*W at ScanNet), 480x640 with N = 2*P,
+# tiny and ragged P, no candidate, one and three batch entries
+GRID_SHAPES = {
+    "exact golden": (2, 38_400, 19_200),
+    "exact scannet": (2, 153_600, 76_800),
+    "projective golden": (2, 38_400, 19_200),
+    "projective scannet": (2, 115_200, 76_800),
+    "480x640": (2, 614_400, 307_200),
+    "P=1": (2, 5_000, 1),
+    "P=7": (2, 999, 7),
+    "ragged P": (2, 153_600, 76_801),
+    "N=0": (2, 0, 76_800),
+    "B=1": (1, 153_600, 76_800),
+    "B=3 ragged": (3, 40_000, 19_999),
+}
+
+
+def test_winner_grid_fits_the_card_and_the_work():
+    """The kernel's grid: at least one block and no more than the card holds
+    at once (its launch is cooperative), at every shape and card size."""
+    for B, N, P in GRID_SHAPES.values():
+        for max_blocks in (1, 132, 396):
+            assert 1 <= TW.winner_kernel.grid(B, N, P, max_blocks) <= max_blocks
+
+
+def test_key_tables_alternate_and_are_reset():
+    """Two tables a stream: each call gets a clean one of at least B * P
+    entries and resets the entries of the other that the call before it
+    dirtied; a larger call grows the clean one."""
+    tabs = TW._Tables()
+    best, other, n = tabs.take(10, "cpu")
+    assert best.numel() == 10 and (best == -1).all() and n == 0 and other is best
+    tabs.done(10)
+    best2, other2, n2 = tabs.take(6, "cpu")
+    assert best2 is not best and other2 is best and n2 == 10
+    tabs.done(6)
+    best3, other3, n3 = tabs.take(25, "cpu")  # grows the first table
+    assert best3.numel() == 25 and (best3 == -1).all() and other3 is best2 and n3 == 6
+    tabs.done(25)
+    assert tabs.take(4, "cpu")[1:] == (best3, 25)

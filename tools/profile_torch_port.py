@@ -28,7 +28,7 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 # CUDA functions of each hand-written kernel (csrc/*.cu)
-PORT_KERNELS = {"knn": ("knn_cluster",), "winner": ("winner_fold_",)}
+PORT_KERNELS = {"knn": ("knn_cluster",), "winner": ("winner_grid",)}
 
 
 def profile_point(name, colors, depths, K, dev, reps=1, top=15, **options):
