@@ -31,14 +31,26 @@ full-arena fusion) and ``PointFusion(assoc='projective', assoc_window=...)``
   6. projective PointFusion on the golden clip (window 2*H*W) against the
      clip's poses;
   7. projective PointFusion at the ScanNet geometry (window 3*H*W, active
-     buffer 1.5*H*W, dense model rows) against the clip's poses.
+     buffer 1.5*H*W, dense model rows) against the clip's poses;
+  8. the gradient of ``slam_loss`` (the depth-calibration loss through
+     ``PointFusion()``'s whole run) with respect to the calibration
+     parameters and the depth maps, on the card against the CPU (golden
+     clip, L=3);
+  9. the depth-calibration loop of ``examples/train_depth_calib.py`` at
+     full width (golden clip, B=2, L=3, 30 steps): the scale found;
+ 10. one forward and backward of ``slam_loss`` at the ScanNet geometry;
+ 11. the metrics on the card: ATE and RPE against the CPU, and chamfer
+     distance and map accuracy between the maps of a gradICP run and a
+     ground-truth-odometry run, with the KNN kernel at those shapes (whole
+     arenas as sources, the other arena's live prefix as targets) against
+     its plain version, timed, with its bound.
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after: the KNN kernel 40 times per frame step on the KNN path and
 never on the projective one, the winner kernel once per fusion step on
-both. Any failed check raises. The line before the last is a JSON object
-with one entry per kernel; the last line is ``{"ok": true, "device": ...}``.
-Needs one card; exits non-zero without one.
+both, neither in a backward. Any failed check raises. The line before the
+last is a JSON object with one entry per kernel; the last line is
+``{"ok": true, "device": ...}``. Needs one card; exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -313,6 +325,15 @@ def _kernels():
     return {"knn": knn_kernel, "winner": winner_kernel}
 
 
+def _launches():
+    return {name: k.launches for name, k in _kernels().items()}
+
+
+def _reset_launches():
+    for k in _kernels().values():
+        k.launches = 0
+
+
 def _run_pointfusion(colors, depths, K, dev, **options):
     """``PointFusion(**options)(RGBDImages(...))`` timed by the host clock
     around a synchronized run, with every kernel's launch count set to 0
@@ -323,13 +344,12 @@ def _run_pointfusion(colors, depths, K, dev, **options):
     rgbd = RGBDImages(colors, depths, K, device=dev)
     slam = PointFusion(device=dev, **options)
     torch.cuda.synchronize()
-    for k in _kernels().values():
-        k.launches = 0
+    _reset_launches()
     t0 = time.perf_counter()
     pcs, poses = slam(rgbd)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    return pcs, poses, seconds, {name: k.launches for name, k in _kernels().items()}
+    return pcs, poses, seconds, _launches()
 
 
 def _check_launches(phase, launches, expected):
@@ -659,6 +679,263 @@ def projective_phase(dev, name, colors, depths, K, window, tol_m, tol_deg=None, 
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 8.-10. backward through the whole sequence
+# ---------------------------------------------------------------------------
+
+TRUE_SCALE = 1.1  # the miscalibrated sensor sees depth / 1.1
+
+
+def _calib_inputs(colors, depths, K, dev):
+    """(rgb, clean depth, observed depth, K) on ``dev``: the observed depth
+    is what a sensor of scale 1/1.1 sees, as in
+    ``examples/train_depth_calib.py``."""
+    rgb, clean, Kt = (torch.from_numpy(x).to(dev) for x in (colors, depths, K))
+    return rgb, clean, clean / TRUE_SCALE, Kt
+
+
+def _loss_and_grads(dev, rgb, depth, K, gt, opts, capacity):
+    """``slam_loss`` and its gradient with respect to (scale, bias) and the
+    depth maps, each pass timed by the host clock around a synchronized run
+    with the launch counts set to 0 before it; returns (loss, param grads
+    (2,), depth grad, (forward s, backward s), (forward launches, backward
+    launches))."""
+    from gradslam_tpu_torch.parallel import DepthCalibParams, slam_loss
+
+    params = DepthCalibParams(device=dev)
+    depth = depth.detach().clone().requires_grad_(True)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    _reset_launches()
+    t0 = time.perf_counter()
+    loss = slam_loss(params, rgb, depth, K, gt, opts, capacity)
+    float(loss.detach())
+    t1 = time.perf_counter()
+    fwd = _launches()
+    _reset_launches()
+    loss.backward()
+    sync()
+    t2 = time.perf_counter()
+    grads = torch.stack([params.scale.grad, params.bias.grad])
+    return loss.detach(), grads, depth.grad, (t1 - t0, t2 - t1), (fwd, _launches())
+
+
+def _rel_err(a, b):
+    """max |a - b| over max |b|, both moved to the CPU."""
+    a, b = a.detach().cpu().double(), b.detach().cpu().double()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def grad_phase(dev):
+    """``slam_loss``'s gradient on the card against the CPU: the golden
+    clip at full width (B=2, L=3), ``PointFusion()`` defaults, scale 1.0,
+    the clip's own poses as the target (a larger residual than the clean
+    run's trajectory, so float32 rounding moves the gradient less)."""
+    from gradslam_tpu_torch import PointFusion
+
+    colors, depths, K = _golden_clip(3)
+    B, L, H, W = colors.shape[:4]
+    opts = PointFusion(device=dev).opts
+    gt = _cycled_poses(L)
+    out = []
+    for d in (dev, torch.device("cpu")):
+        rgb, _, obs, Kt = _calib_inputs(colors, depths, K, d)
+        out.append(_loss_and_grads(d, rgb, obs, Kt, torch.from_numpy(gt).to(d), opts, L * H * W))
+    (loss, g, gd, secs, (fwd, bwd)), (loss_c, g_c, gd_c, secs_c, _) = out
+    err_p, err_d = _rel_err(g, g_c), _rel_err(gd, gd_c)
+    _log(f"grad golden B={B} L={L} {H}x{W}: loss card {float(loss)!r} cpu {float(loss_c)!r}; d/d(scale, bias) "
+         f"card {g.tolist()} cpu {g_c.tolist()}, max |card - cpu| / max |cpu|: params {err_p}, depth maps "
+         f"{err_d}; card forward {secs[0]:.3f} s backward {secs[1]:.3f} s, cpu {secs_c[0]:.3f} s {secs_c[1]:.3f} s; "
+         f"launches forward {fwd} backward {bwd}")
+    for name, x in (("param", g), ("depth", gd)):
+        _check(bool(torch.isfinite(x).all()) and float(x.abs().max()) > 0, f"grad golden: {name} gradient {x}")
+    _check(err_p <= 1e-3 and err_d <= 1e-3, f"grad golden: card vs cpu {err_p}, {err_d}")
+    _check_launches("grad golden forward", fwd, {"knn": (L - 1) * 40, "winner": L})
+    _check_launches("grad golden backward", bwd, {"knn": 0, "winner": 0})
+
+
+def calib_phase(dev, steps=30, L=3):
+    """``examples/train_depth_calib.py``'s loop at full width: the golden
+    clip at B=2, L=3 (its own frames), ``PointFusion()`` defaults, lr 0.05
+    halved every ``steps / 3`` steps, the step normalized by |grad|, bias
+    fixed; the gt trajectory is the clean depths' run. Returns one step's
+    launches.
+
+    Not the clip cycled to L=10: there the loss stops being smooth about 2%
+    above the true scale, where the schedule's third step lands (1.140),
+    and the gradient's sign changes from one scale to the next (at
+    1.129-1.132 it points away from 1.1), so the loop stays between 1.12
+    and 1.16 (1.1388 after 30 steps on an H100)."""
+    from gradslam_tpu_torch import PointFusion
+    from gradslam_tpu_torch.parallel import DepthCalibParams, slam_loss
+    from gradslam_tpu_torch.slam import slam_sequence
+
+    colors, depths, K = _golden_clip(L)
+    B, L, H, W = colors.shape[:4]
+    opts = PointFusion(device=dev).opts
+    rgb, clean, obs, Kt = _calib_inputs(colors, depths, K, dev)
+    with torch.no_grad():
+        _, gt = slam_sequence(rgb, clean, Kt, None, opts, L * H * W)
+    params = DepthCalibParams(device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_all = time.perf_counter()
+    fwd_s, bwd_s = [], []
+    for i in range(steps):
+        lr = 0.05 * 0.5 ** (i / max(steps / 3, 1))
+        params.zero_grad()
+        _reset_launches()
+        t0 = time.perf_counter()
+        loss = slam_loss(params, rgb, obs, Kt, gt, opts, L * H * W)
+        loss_v = float(loss.detach())
+        t1 = time.perf_counter()
+        fwd = _launches()
+        _reset_launches()
+        loss.backward()
+        grad = float(params.scale.grad)
+        t2 = time.perf_counter()
+        bwd = _launches()
+        with torch.no_grad():
+            params.scale -= lr * params.scale.grad / (params.scale.grad.abs() + 1e-20)
+        fwd_s.append(t1 - t0)
+        bwd_s.append(t2 - t1)
+        _log(f"calib step {i:2d}: loss {loss_v!r} d/d(scale) {grad!r} scale {params.scale.item()!r} "
+             f"forward {t1 - t0:.3f} s backward {t2 - t1:.3f} s launches forward {fwd} backward {bwd}")
+        _check(np.isfinite(loss_v) and np.isfinite(grad) and grad != 0, f"calib step {i}: loss {loss_v} grad {grad}")
+        _check_launches(f"calib step {i} forward", fwd, {"knn": (L - 1) * 40, "winner": L})
+        _check_launches(f"calib step {i} backward", bwd, {"knn": 0, "winner": 0})
+    scale = params.scale.item()
+    _log(f"calib golden B={B} L={L} {H}x{W}, {steps} steps in {time.perf_counter() - t_all:.3f} s: scale "
+         f"{scale!r} (true {TRUE_SCALE}, |error| {abs(scale - TRUE_SCALE)!r}), bias {params.bias.item()!r}; "
+         f"seconds a step, median: forward {float(np.median(fwd_s)):.3f}, backward {float(np.median(bwd_s)):.3f}; "
+         f"peak memory {torch.cuda.max_memory_allocated()} bytes")
+    _check(abs(scale - TRUE_SCALE) <= 0.01, f"calib: scale {scale}, true {TRUE_SCALE}")
+    _check(params.bias.item() == 0.0, "calib: the bias moved")
+    return {k: fwd[k] + bwd[k] for k in fwd}
+
+
+def backward_scannet_phase(dev):
+    """One forward and backward of ``slam_loss`` at the ScanNet geometry
+    (B=2, L=16, 240x320, a 1.23M-row arena), against the clip's poses."""
+    from gradslam_tpu_torch import PointFusion
+
+    colors, depths, K = _scannet_clip(16)
+    B, L, H, W = colors.shape[:4]
+    opts = PointFusion(device=dev).opts
+    rgb, _, obs, Kt = _calib_inputs(colors, depths, K, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loss, g, gd, secs, (fwd, bwd) = _loss_and_grads(
+        dev, rgb, obs, Kt, torch.from_numpy(_cycled_poses(L)).to(dev), opts, L * H * W
+    )
+    _log(f"backward scannet B={B} L={L} {H}x{W} CAP={L * H * W}: loss {float(loss)!r}, d/d(scale, bias) "
+         f"{g.tolist()}, max |d/d(depth)| {float(gd.abs().max())!r}; forward {secs[0]:.3f} s, backward "
+         f"{secs[1]:.3f} s, peak memory {torch.cuda.max_memory_allocated()} bytes; launches forward {fwd} "
+         f"backward {bwd}")
+    for name, x in (("param", g), ("depth", gd)):
+        _check(bool(torch.isfinite(x).all()) and float(x.abs().max()) > 0, f"backward scannet: {name} gradient")
+    _check_launches("backward scannet forward", fwd, {"knn": (L - 1) * 40, "winner": L})
+    _check_launches("backward scannet backward", bwd, {"knn": 0, "winner": 0})
+    return {k: fwd[k] + bwd[k] for k in fwd}
+
+
+# ---------------------------------------------------------------------------
+# 11. the metrics
+# ---------------------------------------------------------------------------
+
+
+def trajectory_metrics_phase(dev, golden_poses):
+    """ATE and RPE of phase 3's poses against the clip's cycled poses, on
+    the card and on the CPU."""
+    from gradslam_tpu_torch.metrics import ate_rmse, rpe
+
+    gt = _cycled_poses(golden_poses.shape[1])
+    vals = []
+    for d in (dev, torch.device("cpu")):
+        p, g = torch.from_numpy(golden_poses).to(d), torch.from_numpy(gt).to(d)
+        vals.append(torch.stack([ate_rmse(p, g), *rpe(p, g)]).cpu().double())
+    card, cpu = vals
+    err = float((card - cpu).abs().max())
+    _log(f"metrics golden: (ate_rmse, rpe translation, rpe rotation) per batch entry: card "
+         f"{card.tolist()} cpu {cpu.tolist()}, max |card - cpu| {err!r}")
+    _check(bool(torch.isfinite(card).all()), "metrics: ATE / RPE not finite")
+    _check(err <= 1e-6, f"metrics: card vs cpu {err}")
+
+
+def reconstruction_metrics_phase(dev, name, colors, depths, K):
+    """``chamfer_distance`` and ``map_accuracy`` between the maps of a
+    gradICP run and a ground-truth-odometry run of one clip, then the KNN
+    kernel at the shapes they give it against the plain version on the
+    card, with the targets cut at the last valid one (the same function: no
+    target beyond it is valid). The plain version's one call a direction is
+    its timing too: at these sizes (0.4-11 s) its host dispatch is far
+    shorter than its device time.
+
+    Returns (launches of the metrics' run, {shape: timings})."""
+    from gradslam_tpu_torch import PointFusion, RGBDImages
+    from gradslam_tpu_torch.metrics import chamfer_distance, map_accuracy
+    from gradslam_tpu_torch.ops.knn import knn_kernel, knn_reference, prepare_targets
+
+    B, L, H, W = colors.shape[:4]
+    maps = {}
+    for odom in ("gradicp", "gt"):
+        poses = _cycled_poses(L) if odom == "gt" else None
+        pcs, _ = PointFusion(odom=odom, device=dev)(RGBDImages(colors, depths, K, poses, device=dev))
+        maps[odom] = (pcs.points_padded, pcs.nonpad_mask)
+    (a, va), (b, vb) = maps["gradicp"], maps["gt"]
+    torch.cuda.synchronize()
+    _reset_launches()
+    cd = chamfer_distance(a, b, va, vb)
+    acc, comp = map_accuracy(a, b, va, vb)
+    torch.cuda.synchronize()
+    launches = _launches()
+    _log(f"metrics {name} B={B} CAP={a.shape[1]}: num_points gradicp {va.sum(1).tolist()} gt "
+         f"{vb.sum(1).tolist()}; chamfer {cd.tolist()}, accuracy {acc.tolist()}, completeness "
+         f"{comp.tolist()} (5 cm); launches {launches}")
+    for x in (cd, acc, comp):
+        _check(bool(torch.isfinite(x).all()), f"metrics {name}: not finite")
+    _check(bool((acc > 0.5).all() and (comp > 0.5).all()), f"metrics {name}: accuracy {acc}, completeness {comp}")
+    _check_launches(f"metrics {name}", launches, {"knn": 4, "winner": 0})
+
+    timings = {}
+    for direction, (src, tgt, val) in (("gradicp->gt", (a, b, vb)), ("gt->gradicp", (b, a, va))):
+        src = src.contiguous()
+        prep = prepare_targets(tgt, val)
+        d_k, i_k = knn_kernel(src, prep.packed, prep.limit)
+        T = int(prep.limit.max())
+        tgt_t, val_t = tgt[:, :T].contiguous(), val[:, :T]
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        d_p, i_p = knn_reference(src, tgt_t, val_t)
+        stop.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(stop)
+        _check(torch.equal(i_k, i_p) and torch.equal(d_k, d_p),
+               f"knn metrics {name} {direction}: differs from the plain version")
+        case = f"chamfer {name} {direction} B={B} S={src.shape[1]} T={tgt.shape[1]} limit {prep.limit.tolist()}"
+        _log(f"knn {case}: every source bit-equal to the plain version")
+        if direction != "gradicp->gt":
+            continue
+        ms = _time_ms(lambda: knn_kernel(src, prep.packed, prep.limit), reps=3, warmup=1)
+        bound_ms, bound_by = _knn_bound(src, int(prep.limit.sum()), int(val.sum()))
+        # torch.cdist needs the (B, S, T) float32 distances at once
+        fits = B * src.shape[1] * tgt.shape[1] * 4 < torch.cuda.mem_get_info()[0] // 2
+        library_ms = None
+        if fits:
+            library_ms = _time_ms(
+                lambda: torch.cdist(src, tgt, compute_mode="donot_use_mm_for_euclid_dist")
+                .masked_fill_(~val[:, None, :], torch.inf).min(-1),
+                reps=3, warmup=1,
+            )
+        timings[case] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                             bound_by=bound_by)
+        _log(f"knn timing {case}: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, cdist "
+             f"{'%.6f ms' % library_ms if fits else 'does not fit in memory'}, bound {bound_ms:.6f} "
+             f"ms ({bound_by}), tiles {knn_kernel.tiles(B, src.shape[1], tgt.shape[1])}")
+    return launches, timings
+
+
 def _build_kernels():
     """Builds every kernel's source at once (one nvcc each) and loads them."""
     kernels = _kernels()
@@ -680,6 +957,7 @@ def main() -> int:
     ).stdout.strip()
     _log(smi)
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
     _build_kernels()
 
     entries = {"knn": knn_phase(dev), "winner": winner_phase(dev)}
@@ -694,11 +972,19 @@ def main() -> int:
     by_path["projective scannet"] = projective_phase(
         dev, "scannet", colors, depths, K, 3 * H * W, 0.01, active_capacity=(3 * H * W) // 2
     )
+    grad_phase(dev)
+    by_path["calib golden"] = calib_phase(dev)
+    by_path["backward scannet"] = backward_scannet_phase(dev)
+    trajectory_metrics_phase(dev, golden_poses)
+    for name, clip in (("golden", _golden_clip(10)), ("scannet", _scannet_clip(16))):
+        by_path[f"metrics {name}"], timings = reconstruction_metrics_phase(dev, name, *clip)
+        entries["knn"]["other_shapes"].update(timings)
     for name, entry in entries.items():
         # launches: the ScanNet geometry's run of the path each kernel is
         # timed for; every path's count beside it
         entry["launches"] = by_path["scannet" if name == "knn" else "projective scannet"][name]
         entry["launches_by_path"] = {path: counts[name] for path, counts in by_path.items()}
+    _log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     _log(f"{smi}")
     print(json.dumps({"kernels": list(entries.values())}))
     print(json.dumps({

@@ -10,7 +10,7 @@ in CUDA (``csrc/``). Entry points run on ``"cuda"`` unless given
     >>> pointclouds, recovered_poses = PointFusion()(rgbdimages)
 """
 
-from . import geometry, odometry, ops, slam, structures
+from . import geometry, metrics, odometry, ops, parallel, slam, structures
 from .slam import ICPSLAM, PointFusion
 from .structures import MapState, Pointclouds, RGBDImages, init_map
 
@@ -18,8 +18,10 @@ __version__ = "0.1.0"
 
 __all__ = [
     "geometry",
+    "metrics",
     "odometry",
     "ops",
+    "parallel",
     "slam",
     "structures",
     "ICPSLAM",

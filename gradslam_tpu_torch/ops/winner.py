@@ -34,25 +34,32 @@ __all__ = [
 ]
 
 _INT32_MIN = -(2**31)
+# the integer type of a float's bits
+_BITS = {torch.float32: torch.int32, torch.float64: torch.int64}
 
 
-def _ordered_int32(x: torch.Tensor) -> torch.Tensor:
-    """Maps float32 to int32 keys in the same signed order (-0.0 equal to 0.0)."""
-    bits = (x + 0.0).view(torch.int32)
-    return torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+def _ordered_bits(x: torch.Tensor) -> torch.Tensor:
+    """Maps float32 (float64) to int32 (int64) keys in the same signed
+    order (-0.0 equal to 0.0)."""
+    bits = (x + 0.0).view(_BITS[x.dtype])
+    return torch.where(bits < 0, bits ^ torch.iinfo(bits.dtype).max, bits)
 
 
 def winner_keys(ccount: torch.Tensor, ray: torch.Tensor):
-    """The fusion priority as two int32 words in unsigned order.
+    """The fusion priority as two words in unsigned order.
 
     ``k_hi`` is the image of ``-ccount`` and ``k_lo`` that of ``ray``: for
-    float32 inputs (no NaN), comparing the words as unsigned 32-bit integers
-    orders them as the floats, with ``-0.0`` equal to ``0.0``.
+    float inputs (no NaN), comparing the words as unsigned integers orders
+    them as the floats, with ``-0.0`` equal to ``0.0``.
 
     Returns:
-        (k_hi, k_lo): int32 tensors of the inputs' shape.
+        (k_hi, k_lo): tensors of the inputs' shape, int32 words for float32
+        inputs, int64 words for float64 ones. Only the plain version takes
+        int64 words (the kernel raises): float64 runs on the CPU, as the
+        JAX package's exact path sorts float64 keys under ``jax_enable_x64``.
     """
-    return _ordered_int32(-ccount) ^ _INT32_MIN, _ordered_int32(ray) ^ _INT32_MIN
+    lo = torch.iinfo(_BITS[ray.dtype]).min
+    return _ordered_bits(-ccount) ^ lo, _ordered_bits(ray) ^ lo
 
 
 def _u32(k: torch.Tensor) -> torch.Tensor:
@@ -67,8 +74,17 @@ def winner_order_keys(pix, k_hi, k_lo, slot):
     The JAX package does this with one 4-key ``lax.sort``. Here the keys are
     packed into two int64 words, ``(pix, k_hi)`` and ``(k_lo, slot)``, and two
     stable sorts run from the last word to the first, which gives the same
-    lexicographic order. ``pix`` and ``slot`` lie in ``[0, 2^31)``.
+    lexicographic order. ``pix`` and ``slot`` lie in ``[0, 2^31)``. Int64
+    priority words (float64 keys) take one stable sort per key.
     """
+    if k_hi.dtype == torch.int64:
+        lo = torch.iinfo(torch.int64).min
+        order = None
+        for key in (slot.to(torch.int64), k_lo ^ lo, k_hi ^ lo, pix.to(torch.int64)):
+            key = key if order is None else torch.gather(key, 1, order)
+            step = torch.sort(key, dim=1, stable=True).indices
+            order = step if order is None else torch.gather(order, 1, step)
+        return order
     hi = (pix.to(torch.int64) << 32) | _u32(k_hi)
     lo = ((k_lo ^ _INT32_MIN).to(torch.int64) << 32) | slot.to(torch.int64)
     order = torch.sort(lo, dim=1, stable=True).indices

@@ -103,6 +103,14 @@ def scatter_rows(data, slots, rows, keep) -> torch.Tensor:
     row's value, or, in a batch element with no kept row, to slot 0 with
     its current value: duplicates then write identical bits, so the result
     is deterministic without a spare dump row in the arena.
+
+    Gradient: each slot's output gradient flows back once, as for the
+    JAX package's ``.at[].set(mode='drop')``: a kept row gets its slot's,
+    a dropped row none, ``data`` the gradient of every slot no kept row
+    writes. ``torch.scatter`` hands each duplicate writer the whole output
+    gradient of its slot, so only one writer of the fallback slot carries
+    it (the first kept row, or row 0 where none is kept); the copies the
+    other writers hold are detached.
     """
     B, M, C = rows.shape
     if M == 0:
@@ -116,8 +124,9 @@ def scatter_rows(data, slots, rows, keep) -> torch.Tensor:
         rows.gather(1, first[..., None].expand(B, 1, C)),
         data[:, :1],
     )
+    lead = keep.scatter(1, first, True)  # the fallback slot's one live writer
     idx = torch.where(keep, slots, fb_slot)
-    val = torch.where(keep[..., None], rows, fb_row)
+    val = torch.where(keep[..., None], rows, torch.where(lead[..., None], fb_row, fb_row.detach()))
     return data.scatter(1, idx[..., None].expand(B, M, C), val)
 
 

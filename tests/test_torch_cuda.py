@@ -316,3 +316,73 @@ def test_pointfusion_on_the_card_matches_the_cpu(cuda_device, kw):
         out[dev.type] = (poses.cpu().numpy(), pcs.num_points_per_pointcloud.cpu().numpy())
     assert np.abs(out["cuda"][0] - out["cpu"][0]).max() < 1e-4
     assert np.all(np.abs(out["cuda"][1] - out["cpu"][1]) <= 0.005 * out["cpu"][1])
+
+
+def test_winner_kernel_refuses_float64_keys(cuda_device):
+    """float64 fusion keys are int64 words, which only the plain version
+    takes: on the card they raise instead of running another way."""
+    cc = torch.rand((1, 64), dtype=torch.float64, device=cuda_device)
+    k_hi, k_lo = winner_keys(cc, cc)
+    assert k_hi.dtype == torch.int64
+    pix = torch.zeros((1, 64), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(TypeError):
+        pixel_winner(pix, k_hi, k_lo, pix, 4, 64)
+
+
+def _calib_step(dev, L=3):
+    """One ``slam_loss`` forward and backward on the golden clip (clip
+    poses as the target, the depth seen by a sensor of scale 1/1.1):
+    (parameter grads, depth grad, forward launches, backward launches)."""
+    from gradslam_tpu_torch.parallel import DepthCalibParams, slam_loss
+
+    c, d, K = (torch.from_numpy(x[:, :L] if x.ndim == 5 else x).to(dev) for x in _clip())
+    gt = torch.from_numpy(np.load(DATA / "poses.npy").astype(np.float32)[:, :L]).to(dev)
+    params = DepthCalibParams(device=dev)
+    depth = (d / 1.1).requires_grad_(True)
+    counts = lambda: (knn_kernel.launches, winner_kernel.launches)
+    before = counts()
+    loss = slam_loss(params, c, depth, K, gt, PointFusion(device=dev).opts, L * 120 * 160)
+    mid = counts()
+    loss.backward()
+    after = counts()
+    fwd = tuple(b - a for a, b in zip(before, mid))
+    bwd = tuple(b - a for a, b in zip(mid, after))
+    return torch.stack([params.scale.grad, params.bias.grad]), depth.grad, fwd, bwd
+
+
+def test_training_step_on_the_card(cuda_device):
+    """The forward of a training step launches both kernels (40 KNN per
+    frame step, one winner per fusion step), the backward neither; the
+    gradients are finite, nonzero and match the CPU's within 1e-3 of their
+    largest component."""
+    g, gd, fwd, bwd = _calib_step(cuda_device)
+    assert fwd == (2 * 40, 3) and bwd == (0, 0)
+    g_c, gd_c, _, _ = _calib_step(torch.device("cpu"))
+    for card, cpu in ((g, g_c), (gd, gd_c)):
+        assert torch.isfinite(card).all() and float(card.abs().max()) > 0
+        assert float((card.cpu() - cpu).abs().max()) <= 1e-3 * float(cpu.abs().max())
+
+
+def test_metrics_on_the_card_match_the_cpu(cuda_device):
+    """On the outputs of a run on the card: ATE and RPE within 1e-6 of the
+    same functions on the CPU; chamfer distance and map accuracy between
+    the gradICP map and a ground-truth-odometry map run on the KNN kernel
+    (4 launches) and match the CPU's plain version."""
+    from gradslam_tpu_torch.metrics import ate_rmse, chamfer_distance, map_accuracy, rpe
+
+    c, d, K = _clip()
+    gt = torch.from_numpy(np.load(DATA / "poses.npy").astype(np.float32)).to(cuda_device)
+    pcs, poses = PointFusion(device=cuda_device)(RGBDImages(c, d, K, device=cuda_device))
+    ref, _ = PointFusion(odom="gt", device=cuda_device)(RGBDImages(c, d, K, gt, device=cuda_device))
+    maps = (pcs.points_padded, ref.points_padded, pcs.nonpad_mask, ref.nonpad_mask)
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        a, b, va, vb = (x.to(dev) for x in maps)
+        before = knn_kernel.launches
+        recon = torch.stack([chamfer_distance(a, b, va, vb), *map_accuracy(a, b, va, vb)])
+        assert knn_kernel.launches - before == (4 if dev.type == "cuda" else 0)
+        p, g = poses.to(dev), gt.to(dev)
+        out.append((torch.stack([ate_rmse(p, g), *rpe(p, g)]).cpu(), recon.cpu()))
+    (traj, recon), (traj_c, recon_c) = out
+    assert torch.isfinite(traj).all() and float((traj - traj_c).abs().max()) <= 1e-6
+    torch.testing.assert_close(recon, recon_c, rtol=1e-5, atol=1e-7)

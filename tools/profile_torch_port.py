@@ -11,8 +11,13 @@ geometry, as chip_smoke.py runs them), each once to warm up, ``--reps`` times ti
 once under ``torch.profiler``. For each it reports the wall time per frame
 step without and with the profiler, the device time summed over kernels,
 the device's busy and idle share of the wall time, kernel launches per
-frame step, and the kernels that take the most device time. With ``--out``
-it also writes the full table as JSON there.
+frame step, and the kernels that take the most device time. With
+``--backward`` it also profiles the backward of a training step, the
+gradient of ``slam_loss`` (the depth-calibration loss through
+``PointFusion()``'s run) on the golden clip and at the ScanNet geometry:
+the forward runs unprofiled, then ``loss.backward()`` is timed and
+profiled the same way. With ``--out`` it also writes the full table as JSON
+there.
 """
 
 from __future__ import annotations
@@ -46,13 +51,55 @@ def profile_point(name, colors, depths, K, dev, reps=1, top=15, **options):
         slam(rgbd)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    wall_plain = sorted(walls)[len(walls) // 2]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         slam(rgbd)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    B, L = colors.shape[:2]
+    return _report(name, prof, wall, walls, colors.shape[:2], top)
+
+
+def profile_backward(name, colors, depths, K, gt, dev, reps=1, top=15):
+    """The backward of one training step: ``slam_loss`` runs unprofiled,
+    then ``loss.backward()`` is timed (``reps`` times, each after a fresh
+    forward) and profiled once."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gradslam_tpu_torch import PointFusion
+    from gradslam_tpu_torch.parallel import DepthCalibParams, slam_loss
+
+    B, L, H, W = colors.shape[:4]
+    opts = PointFusion(device=dev).opts
+    rgb, depth, Kt, gt = (torch.from_numpy(x).to(dev) for x in (colors, depths, K, gt))
+    params = DepthCalibParams(device=dev)
+
+    def forward():
+        params.zero_grad()
+        loss = slam_loss(params, rgb, depth, Kt, gt, opts, L * H * W)
+        torch.cuda.synchronize()
+        return loss
+
+    forward().backward()  # warm-up
+    walls = []
+    for _ in range(reps):
+        loss = forward()
+        t0 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    loss = forward()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return _report(name, prof, wall, walls, (B, L), top)
+
+
+def _report(name, prof, wall, walls, batch_frames, top):
+    """The device's share of one profiled run and its kernels by name."""
+    wall_plain = sorted(walls)[len(walls) // 2]
+    B, L = batch_frames
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
     # union of kernel intervals: time the device had at least one kernel
@@ -102,7 +149,7 @@ def profile_point(name, colors, depths, K, dev, reps=1, top=15, **options):
         ],
     )
     print(f"{name}: {out['frames_per_s_unprofiled']:.3f} frames/s unprofiled (median of "
-          f"{reps}: {[round(B * L / w, 3) for w in walls]}), "
+          f"{len(walls)}: {[round(B * L / w, 3) for w in walls]}), "
           f"{out['frames_per_s']:.3f} profiled, {out['wall_ms_per_step']:.3f} ms per step, "
           f"{out['launches_per_step']:.1f} kernel launches per step, device kernels "
           f"{out['device_kernel_ms']:.3f} ms, device busy {out['device_busy_share']:.4f}, "
@@ -119,6 +166,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="write the results as JSON to this file")
     ap.add_argument("--reps", type=int, default=1, help="unprofiled timed runs per point")
+    ap.add_argument("--backward", action="store_true",
+                    help="also profile the backward of a training step at both geometries")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_torch_port: no CUDA device", file=sys.stderr)
@@ -145,6 +194,13 @@ def main(argv=None) -> int:
         "projective scannet B=2 L=16 240x320", colors, depths, K, dev, args.reps,
         assoc="projective", assoc_window=3 * 240 * 320, active_capacity=(3 * 240 * 320) // 2,
     ))
+    if args.backward:
+        for name, (colors, depths, K), L in (("golden B=2 L=10 120x160", chip_smoke._golden_clip(10), 10),
+                                            ("scannet B=2 L=16 240x320", chip_smoke._scannet_clip(16), 16)):
+            res["points"].append(profile_backward(
+                f"backward {name}", colors, depths / chip_smoke.TRUE_SCALE, K, chip_smoke._cycled_poses(L),
+                dev, args.reps,
+            ))
     if args.out:
         out = pathlib.Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
