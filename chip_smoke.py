@@ -43,7 +43,21 @@ full-arena fusion) and ``PointFusion(assoc='projective', assoc_window=...)``
      distance and map accuracy between the maps of a gradICP run and a
      ground-truth-odometry run, with the KNN kernel at those shapes (whole
      arenas as sources, the other arena's live prefix as targets) against
-     its plain version, timed, with its bound.
+     its plain version, timed, with its bound;
+ 12. block-gated PointFusion (``block_size=4096``, 300 blocks, 75 visible
+     at most) at the ScanNet geometry: its poses against phase 4's ungated
+     run, every winner selection against the plain version, the visible
+     blocks per frame, and frames/s beside the ungated run's (medians of 3);
+ 13. semantic labels at the ScanNet geometry on the exact KNN path and the
+     projective path: a constant label and 20 random classes, each run
+     bit-identical in poses and map channels 0-9 to the run without labels;
+ 14. the object-level API: the three odometry providers on the golden
+     clip's frames 0 -> 1 against the CPU, with every KNN call against the
+     plain version; the GradICP provider recovering a known motion of a
+     whole 240x320 frame; ``update_map_fusion`` and
+     ``find_correspondences`` over the golden clip's first three frames
+     against the CPU, with every winner selection against the plain
+     version.
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after: the KNN kernel 40 times per frame step on the KNN path and
@@ -398,7 +412,8 @@ def golden_phase(dev):
 
 
 def scannet_phase(dev, golden_poses):
-    """PointFusion gradicp at the repo's ScanNet geometry (240x320, L=16)."""
+    """PointFusion gradicp at the repo's ScanNet geometry (240x320, L=16);
+    returns (launches, poses, num_points)."""
     B, L, H, W = 2, 16, 240, 320
     colors, depths, K = _scannet_clip(L)
     torch.cuda.reset_peak_memory_stats()
@@ -413,7 +428,7 @@ def scannet_phase(dev, golden_poses):
          f"launches {launches}")
     _check(bool(np.isfinite(p).all()), "scannet poses are not finite")
     _check_launches("scannet", launches, {"knn": (L - 1) * 40, "winner": L})
-    return launches
+    return launches, p, npts
 
 
 # ---------------------------------------------------------------------------
@@ -936,6 +951,272 @@ def reconstruction_metrics_phase(dev, name, colors, depths, K):
     return launches, timings
 
 
+# ---------------------------------------------------------------------------
+# 12. block-gated PointFusion at the ScanNet geometry
+# ---------------------------------------------------------------------------
+
+GATE_BLOCK = 4096  # rows a block: 300 blocks in the 1,228,800-row arena
+DOT_TH = 0.93969262  # cos 20 deg, the fusion's normal gate
+
+
+def gated_run_inputs(colors, depths, K, dev, block_size):
+    """One ``PointFusion(block_size=...)`` run that records every winner
+    selection (as ``main_path_winner_inputs``) and, for each fusion step,
+    the visible blocks of each batch entry and the visible capacity."""
+    from gradslam_tpu_torch import PointFusion, RGBDImages
+    from gradslam_tpu_torch.slam import fusionutils
+
+    calls, visible = [], []
+    real_w, real_v = fusionutils.pixel_winner, fusionutils.visible_subarena
+
+    def rec_winner(pix, k_hi, k_lo, slot, num_pixels, sentinel):
+        calls.append((tuple(t.contiguous().clone() for t in (pix, k_hi, k_lo, slot)), int(num_pixels), int(sentinel)))
+        return real_w(pix, k_hi, k_lo, slot, num_pixels, sentinel)
+
+    def rec_visible(map_state, pose, intrinsics, H, W, block_size, visible_capacity):
+        out = real_v(map_state, pose, intrinsics, H, W, block_size, visible_capacity)
+        blocks = out[2].reshape(out[2].shape[0], visible_capacity, block_size).any(-1).sum(1)
+        visible.append((blocks.tolist(), visible_capacity))
+        return out
+
+    fusionutils.pixel_winner, fusionutils.visible_subarena = rec_winner, rec_visible
+    try:
+        PointFusion(device=dev, block_size=block_size)(RGBDImages(colors, depths, K, device=dev))
+    finally:
+        fusionutils.pixel_winner, fusionutils.visible_subarena = real_w, real_v
+    return calls, visible
+
+
+def gated_scannet_phase(dev, ungated_poses, ungated_npts, reps=3):
+    """``PointFusion(block_size=4096)`` at the ScanNet geometry against
+    phase 4's ungated run (translations within 5e-3 m, the JAX package's
+    gate), its runs interleaved with ungated ones for frames/s (medians of
+    ``reps``), every winner selection against the plain version, and the
+    visible blocks of each frame below the visible capacity (else blocks
+    were dropped). Returns (launches, {run: frames/s})."""
+    colors, depths, K = _scannet_clip(16)
+    B, L, H, W = colors.shape[:4]
+    CAP = L * H * W
+    runs = {"ungated": [], "gated": []}
+    for _ in range(reps):
+        for name, options in (("ungated", {}), ("gated", dict(block_size=GATE_BLOCK))):
+            pcs, poses, seconds, launches = _run_pointfusion(colors, depths, K, dev, **options)
+            _check_launches(f"{name} scannet", launches, {"knn": (L - 1) * 40, "winner": L})
+            runs[name].append((seconds, poses.cpu().numpy(), pcs.num_points_per_pointcloud.cpu().numpy()))
+    fps = {name: B * L / float(np.median([r[0] for r in rs])) for name, rs in runs.items()}
+    _, p, npts = runs["gated"][0]
+    terr = float(np.linalg.norm(p[..., :3, 3] - ungated_poses[..., :3, 3], axis=-1).max())
+    same = all(np.array_equal(r[1], p) for r in runs["gated"])
+    _log(f"gated scannet B={B} L={L} {H}x{W} CAP={CAP} block {GATE_BLOCK} ({-(-CAP // GATE_BLOCK)} blocks): "
+         f"frames/s median of {reps}: gated {fps['gated']:.3f} "
+         f"{[round(B * L / r[0], 3) for r in runs['gated']]}, ungated {fps['ungated']:.3f} "
+         f"{[round(B * L / r[0], 3) for r in runs['ungated']]}; max translation from phase 4's ungated run "
+         f"{terr!r} m; num_points gated {npts.tolist()} ungated {ungated_npts.tolist()}; gated runs "
+         f"{'bit-identical' if same else 'differ'} across runs; launches {launches}")
+    _check(bool(np.isfinite(p).all()), "gated scannet: poses are not finite")
+    _check(terr < 5e-3, f"gated scannet: {terr} m from the ungated run")
+
+    calls, visible = gated_run_inputs(colors, depths, K, dev, GATE_BLOCK)
+    _check(len(calls) == L and len(visible) == L, f"gated scannet: {len(calls)} selections, {len(visible)} gates")
+    for n, (args, P, sentinel) in enumerate(calls):
+        _winner_case(f"gated scannet main path, fusion step {n + 1}", args, P, sentinel, log=False)
+    V = visible[0][1]
+    _log(f"gated scannet: {L} selections equal to the plain version; visible blocks per fusion step "
+         f"(of at most {V}): {[v for v, _ in visible]}")
+    _check(max(max(v) for v, _ in visible) < V, f"gated scannet: the visible blocks reached the capacity {V}")
+    return launches, fps
+
+
+# ---------------------------------------------------------------------------
+# 13. semantic labels at the ScanNet geometry
+# ---------------------------------------------------------------------------
+
+
+def labels_phase(dev, name, seed=0, **options):
+    """``slam_sequence`` with ``labels_seq`` at the ScanNet geometry, with
+    no labels, a constant label 7 and 20 classes drawn per pixel: poses and
+    map channels 0-9 bit-identical to the run without labels and the same
+    launches; under the constant label every live label is 7 and its
+    confidence the ccount bit for bit; the 20 classes stay integers in
+    [0, 20) with confidences >= 0. Returns the constant-label run's
+    launches."""
+    from gradslam_tpu_torch import PointFusion
+    from gradslam_tpu_torch.slam import slam_sequence
+    from gradslam_tpu_torch.structures import map_mask
+
+    colors, depths, K = _scannet_clip(16)
+    B, L, H, W = colors.shape[:4]
+    opts = PointFusion(device=dev, **options).opts
+    rgb, depth, Kt = (torch.from_numpy(x).to(dev) for x in (colors, depths, K))
+    classes = np.random.default_rng(seed).integers(0, 20, (B, L, H, W)).astype(np.float32)
+    label_sets = {
+        "no labels": None,
+        "constant 7": torch.full((B, L, H, W), 7.0, device=dev),
+        "20 classes": torch.from_numpy(classes).to(dev),
+    }
+    runs = {}
+    for lname, labels in label_sets.items():
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        m, poses = slam_sequence(rgb, depth, Kt, None, opts, L * H * W, labels_seq=labels)
+        torch.cuda.synchronize()
+        runs[lname] = (m, poses, _launches(), time.perf_counter() - t0)
+    m0, p0, launches0, _ = runs["no labels"]
+    _check_launches(f"labels {name}", launches0, {"knn": 0 if opts.assoc == "projective" else (L - 1) * 40,
+                                                    "winner": L})
+    for lname in ("constant 7", "20 classes"):
+        m, p, launches, seconds = runs[lname]
+        live = map_mask(m)
+        labs, conf = m.labels[live], m.label_conf[live]
+        _log(f"labels {name} B={B} L={L} {H}x{W} {options}, {lname}: {B * L / seconds:.3f} frames/s, num_points "
+             f"{m.num_points.tolist()}, poses and channels 0-9 bit-identical to the run without labels: "
+             f"{torch.equal(p, p0) and torch.equal(m.data[..., :10], m0.data[..., :10])}, labels "
+             f"{torch.unique(labs).numel()} distinct in [{float(labs.min())}, {float(labs.max())}], confidence "
+             f"[{float(conf.min())!r}, {float(conf.max())!r}], launches {launches}")
+        _check(torch.equal(p, p0), f"labels {name} {lname}: poses differ from the run without labels")
+        _check(torch.equal(m.num_points, m0.num_points) and torch.equal(m.data[..., :10], m0.data[..., :10]),
+               f"labels {name} {lname}: map channels 0-9 differ from the run without labels")
+        _check(launches == launches0, f"labels {name} {lname}: launches {launches} vs {launches0}")
+        if lname == "constant 7":
+            _check(bool((labs == 7.0).all()), f"labels {name}: a live label is not 7")
+            _check(torch.equal(conf, m.ccounts[..., 0][live]), f"labels {name}: label_conf differs from ccount")
+        else:
+            _check(bool((labs == labs.round()).all() and (labs >= 0).all() and (labs < 20).all()),
+                   f"labels {name}: a live label is not an integer in [0, 20)")
+            _check(bool((conf >= 0).all()), f"labels {name}: a negative label confidence")
+    return runs["constant 7"][2]
+
+
+# ---------------------------------------------------------------------------
+# 14. the object-level API
+# ---------------------------------------------------------------------------
+
+
+def _recording(module, name, calls, keep_out=False):
+    """Replaces ``module.name`` by a wrapper that appends each call's
+    arguments (tensors cloned), and its output with ``keep_out``, to
+    ``calls``; returns a function that restores it."""
+    real = getattr(module, name)
+    copy = lambda x: x.detach().clone() if torch.is_tensor(x) else x
+
+    def wrapper(*args):
+        out = real(*args)
+        calls.append((tuple(copy(a) for a in args), out if keep_out else None))
+        return out
+
+    setattr(module, name, wrapper)
+    return lambda: setattr(module, name, real)
+
+
+def _drive_object_api(device, knn_calls, winner_calls):
+    """The providers on the golden clip's frames 0 -> 1 (the map frame 0's
+    whole cloud, the source frame 1 at every 4th pixel), then
+    ``find_correspondences`` and ``update_map_fusion`` over frames 0-2, with
+    the KNN and winner calls recorded."""
+    from gradslam_tpu_torch import Pointclouds, RGBDImages
+    from gradslam_tpu_torch.odometry import (
+        GradICPOdometryProvider,
+        GroundTruthOdometryProvider,
+        ICPOdometryProvider,
+        downsample_rgbdimages,
+        icputils,
+    )
+    from gradslam_tpu_torch.slam import find_correspondences, fusionutils, update_map_fusion
+    from gradslam_tpu_torch.structures import pointclouds_from_rgbdimages
+
+    d = DATA / "msrd_b2s3"
+    c, dep, K, P = (np.load(d / f"{n}.npy").astype(np.float32) for n in ("colors", "depths", "intrinsics", "poses"))
+    frame = lambda s: RGBDImages(c[:, s : s + 1], dep[:, s : s + 1], K, P[:, s : s + 1], device=device)
+    restore = [_recording(icputils, "knn", knn_calls), _recording(fusionutils, "pixel_winner", winner_calls, True)]
+    try:
+        out = {"gt": GroundTruthOdometryProvider().provide(frame(0), frame(1))}
+        maps_pc, frames_pc = pointclouds_from_rgbdimages(frame(0)), downsample_rgbdimages(frame(1), 4)
+        out["icp"] = ICPOdometryProvider().provide(maps_pc, frames_pc)
+        out["gradicp"] = GradICPOdometryProvider().provide(maps_pc, frames_pc)
+        pc, tables = Pointclouds(), []
+        for s in range(3):
+            if s:
+                tables.append(find_correspondences(pc, frame(s), 0.05, DOT_TH))
+            pc = update_map_fusion(pc, frame(s), 0.05, DOT_TH, 0.6)
+    finally:
+        for r in restore:
+            r()
+    out["tables"], out["map"] = tables, pc
+    return out
+
+
+def _check_knn_calls(phase, calls):
+    """Each recorded ``knn(src, targets)`` call, run again on the kernel,
+    against the plain version on the same inputs."""
+    from gradslam_tpu_torch.ops.knn import knn, knn_reference
+
+    for n, ((src, tgt, *rest), _) in enumerate(calls):
+        dk, ik = knn(src, tgt, *rest)
+        dp, ip = knn_reference(src, tgt.tgt, tgt.valid)
+        _check(torch.equal(ik, ip) and torch.equal(dk, dp), f"{phase}: KNN call {n} differs from the plain version")
+
+
+def object_api_phase(dev):
+    """The odometry providers and the table-based fusion API on the card
+    against the CPU, every KNN and winner call of the card's run against
+    the plain version, and the GradICP provider recovering a known motion
+    of a whole 240x320 frame. Returns the card run's launches."""
+    from gradslam_tpu_torch import RGBDImages
+    from gradslam_tpu_torch.geometry import se3_exp
+    from gradslam_tpu_torch.odometry import GradICPOdometryProvider, icputils
+    from gradslam_tpu_torch.ops import pixel_winner_reference
+    from gradslam_tpu_torch.structures import pointclouds_from_rgbdimages
+
+    torch.cuda.synchronize()
+    _reset_launches()
+    knn_calls, winner_calls = [], []
+    card = _drive_object_api(dev, knn_calls, winner_calls)
+    # the GradICP provider on a whole ScanNet-geometry frame moved by T_true
+    colors, depths, K = _scannet_clip(1)
+    src = pointclouds_from_rgbdimages(RGBDImages(colors, depths, K, device=dev))
+    T_true = se3_exp(torch.tensor([0.01, -0.01, 0.02, 0.05, -0.04, 0.03], device=dev))
+    big_calls = []
+    restore = _recording(icputils, "knn", big_calls)
+    try:
+        T = GradICPOdometryProvider(numiters=20, dist_thresh=0.2).provide(src.transform(T_true), src)
+    finally:
+        restore()
+    torch.cuda.synchronize()
+    launches = _launches()
+    _check(launches == {"knn": len(knn_calls) + len(big_calls), "winner": len(winner_calls)},
+           f"object api: launches {launches} for {len(knn_calls) + len(big_calls)} KNN and "
+           f"{len(winner_calls)} winner calls")
+    cpu_knn, cpu_winner = [], []
+    cpu = _drive_object_api(torch.device("cpu"), cpu_knn, cpu_winner)
+
+    t_err = {k: float((card[k].cpu() - cpu[k]).abs().max()) for k in ("gt", "icp", "gradicp")}
+    _check(all(e <= 1e-4 for e in t_err.values()), f"object api: providers card vs cpu {t_err}")
+    _check_knn_calls("object api", knn_calls)
+    _check_knn_calls("object api scannet frame", big_calls)
+    _check(len(winner_calls) == len(cpu_winner) == 5, f"object api: {len(winner_calls)} winner selections")
+    for n, ((args, out), (_, out_cpu)) in enumerate(zip(winner_calls, cpu_winner)):
+        _check(torch.equal(out, pixel_winner_reference(*args)), f"object api: selection {n} differs from the plain version")
+        _check(torch.equal(out.cpu(), out_cpu), f"object api: selection {n} (pix_corr) differs from the CPU's")
+    for n, (a, b) in enumerate(zip(card["tables"], cpu["tables"])):
+        _check(torch.equal(a.cpu(), b), f"object api: correspondence table {n} differs from the CPU's")
+    mc, mp = card["map"], cpu["map"]
+    map_err = float((mc.points_padded.cpu() - mp.points_padded).abs().max())
+    _check(torch.equal(mc.num_points_per_pointcloud.cpu(), mp.num_points_per_pointcloud) and map_err <= 1e-4,
+           f"object api: fused map card vs cpu, num_points {mc.num_points_per_pointcloud.tolist()} vs "
+           f"{mp.num_points_per_pointcloud.tolist()}, points {map_err}")
+    T_err = float((T[:, 0] - T_true).abs().max())
+    _log(f"object api golden: providers card vs cpu max |dT| {t_err}; {len(knn_calls)} KNN calls bit-equal to the "
+         f"plain version; {len(winner_calls)} winner selections bit-equal to the plain version and the CPU's; "
+         f"tables {[tuple(t.shape) for t in card['tables']]} equal to the CPU's; fused map num_points "
+         f"{mc.num_points_per_pointcloud.tolist()}, max |points - cpu| {map_err!r}")
+    _log(f"object api scannet frame B={src.points_padded.shape[0]} N={src.points_padded.shape[1]} "
+         f"({src.num_points_per_pointcloud.tolist()} valid): GradICP recovers T_true within {T_err!r} "
+         f"(max |T - T_true|), {len(big_calls)} KNN calls bit-equal to the plain version; launches {launches}")
+    _check(T_err < 5e-3, f"object api: GradICP off T_true by {T_err}")
+    return launches
+
+
 def _build_kernels():
     """Builds every kernel's source at once (one nvcc each) and loads them."""
     kernels = _kernels()
@@ -963,7 +1244,7 @@ def main() -> int:
     entries = {"knn": knn_phase(dev), "winner": winner_phase(dev)}
     by_path = {}
     golden_poses, by_path["golden"] = golden_phase(dev)
-    by_path["scannet"] = scannet_phase(dev, golden_poses)
+    by_path["scannet"], scannet_poses, scannet_npts = scannet_phase(dev, golden_poses)
     H, W = 120, 160
     colors, depths, K = _golden_clip(10)
     by_path["projective golden"] = projective_phase(dev, "golden", colors, depths, K, 2 * H * W, 0.02, 2.0)
@@ -979,6 +1260,12 @@ def main() -> int:
     for name, clip in (("golden", _golden_clip(10)), ("scannet", _scannet_clip(16))):
         by_path[f"metrics {name}"], timings = reconstruction_metrics_phase(dev, name, *clip)
         entries["knn"]["other_shapes"].update(timings)
+    by_path["gated scannet"], _ = gated_scannet_phase(dev, scannet_poses, scannet_npts)
+    by_path["labels scannet"] = labels_phase(dev, "scannet")
+    by_path["labels projective scannet"] = labels_phase(
+        dev, "projective scannet", assoc="projective", assoc_window=3 * H * W, active_capacity=(3 * H * W) // 2
+    )
+    by_path["object api"] = object_api_phase(dev)
     for name, entry in entries.items():
         # launches: the ScanNet geometry's run of the path each kernel is
         # timed for; every path's count beside it

@@ -33,6 +33,8 @@ __all__ = [
     "point_to_plane_ICP_projective",
     "point_to_plane_gradICP_projective",
     "frame_points_from_maps",
+    "downsample_rgbdimages",
+    "downsample_pointclouds",
 ]
 
 
@@ -378,4 +380,34 @@ def frame_points_from_maps(
         normals=global_normal_map[sl].reshape(B, -1, 3),
         colors=rgb_image[sl].reshape(B, -1, 3),
         valid=valid_mask[sl].reshape(B, -1),
+    )
+
+
+def downsample_rgbdimages(rgbdimages, ds_ratio: int):
+    """A sequence-length-1 :class:`RGBDImages` batch, strided by
+    ``ds_ratio`` in both axes, as :class:`Pointclouds` of its valid-depth
+    pixels (global coordinates, in pixel order)."""
+    from ..structures.utils import valid_points_first
+
+    if rgbdimages.shape[1] != 1:
+        raise ValueError(f"expected sequence length 1, got {rgbdimages.shape[1]}")
+    rgbd = rgbdimages.to_channels_last()
+    fp = frame_points_from_maps(rgbd.global_vertex_map, rgbd.global_normal_map, rgbd.rgb_image,
+                                rgbd.valid_depth_mask, ds_ratio)
+    return valid_points_first(fp.points, fp.normals, fp.colors, fp.valid)
+
+
+def downsample_pointclouds(pointclouds, pc2im_bnhw, ds_ratio: int):
+    """The map points of an active table (``find_active_map_points``) whose
+    pixel lies on the ``ds_ratio`` grid, as new :class:`Pointclouds`."""
+    from ..structures import Pointclouds
+
+    tab = pc2im_bnhw.long()
+    tab = tab[(tab[:, 2] % ds_ratio == 0) & (tab[:, 3] % ds_ratio == 0)]
+    rows = [tab[tab[:, 0] == b][:, 1] for b in range(len(pointclouds))]
+    pick = lambda padded: None if padded is None else [padded[b][r] for b, r in enumerate(rows)]
+    return Pointclouds(
+        points=pick(pointclouds.points_padded),
+        normals=pick(pointclouds.normals_padded),
+        colors=pick(pointclouds.colors_padded),
     )

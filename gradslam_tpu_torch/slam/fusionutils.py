@@ -1,6 +1,5 @@
 """PointFusion association and fusion (PyTorch port of
-gradslam_tpu.slam.fusionutils: the exact path and the capacity-windowed
-paths).
+gradslam_tpu.slam.fusionutils).
 
 Association state is dense and of fixed size: the map rows active in the
 live frame are compacted into an ``active_capacity`` buffer (or, with a
@@ -12,22 +11,34 @@ is appended to the arena.
 
 The winner table is indexed by pixel, so it is the winner part of the model
 image, and the merge reads the frame attributes at the table's own pixel.
+
+With ``block_size`` the association runs on the visible blocks of the arena
+only (:func:`visible_subarena`); with ``frame_labels`` the arena's channels
+10-11 carry a per-point semantic label fused by streaming majority. The
+dense association helpers (:func:`find_correspondences_dense`,
+:func:`fuse_map_dense`) and the reference's table-based host API
+(:func:`find_active_map_points` ... :func:`fuse_with_map`) sit at the
+bottom; every winner of theirs is picked by the same winner kernel.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+import warnings
+from typing import NamedTuple, Optional, Union
 
 import torch
 
-from ..geometry import project_points_to_pixels
+from ..geometry import inverse_transformation, project_points_to_pixels, transform_pointcloud
 from ..ops.masking import compact_masked
 from ..ops.winner import pixel_winner, winner_keys
 from ..structures.maparena import (
     MapState,
     append_rows_to_map,
     append_to_map,
+    init_map,
     map_mask,
+    map_to_pointclouds,
+    pack_rows,
     scatter_rows,
 )
 
@@ -35,8 +46,20 @@ __all__ = [
     "get_alpha",
     "are_points_close",
     "are_normals_similar",
+    "DenseCorrespondence",
+    "project_map_to_frame",
+    "visible_subarena",
+    "find_correspondences_dense",
+    "fuse_map_dense",
     "fusion_update_compact",
     "aggregate_map_dense",
+    "find_active_map_points",
+    "find_similar_map_points",
+    "find_best_unique_correspondences",
+    "find_correspondences",
+    "fuse_with_map",
+    "update_map_fusion",
+    "update_map_aggregate",
 ]
 
 
@@ -64,9 +87,102 @@ def are_normals_similar(t1, t2, dot_th, dim: int = -1):
     return (t1 * t2).sum(dim) > dot_th
 
 
+class DenseCorrespondence(NamedTuple):
+    """Dense association state over the map arena.
+
+    Attributes:
+        winner: (B, CAP) bool, the slot is the best correspondence of its
+            pixel.
+        h, w: (B, CAP) int32 projected pixel of each slot (valid where
+            ``active``).
+        active: (B, CAP) bool, the slot projects inside the live frame.
+        pix_corr: (B, H*W) bool, the pixel has a corresponding map point.
+    """
+
+    winner: torch.Tensor
+    h: torch.Tensor
+    w: torch.Tensor
+    active: torch.Tensor
+    pix_corr: torch.Tensor
+
+
 def _project_points_to_frame(points, live, pose, intrinsics, H, W):
     """(B, N, 3) world points -> pixel rows, cols and in-frame mask."""
     return project_points_to_pixels(points, live, pose, intrinsics, H, W)
+
+
+def project_map_to_frame(map_state: MapState, pose, intrinsics, H: int, W: int):
+    """Projects the live map points into the camera at ``pose``.
+
+    Returns:
+        (h, w, active): (B, CAP) int32 pixel rows and cols, bool mask.
+    """
+    return _project_points_to_frame(map_state.points, map_mask(map_state), pose, intrinsics, H, W)
+
+
+def visible_subarena(map_state: MapState, pose, intrinsics, H: int, W: int, block_size: int,
+                     visible_capacity: int):
+    """Block-gated view of the arena: the blocks whose bounding sphere can
+    project into the frame.
+
+    The arena is ``NB = ceil(CAP / block_size)`` contiguous blocks (the last
+    one zero-padded). Each block's centroid and radius over its live rows
+    go through a conservative sphere-vs-frustum test; the visible blocks,
+    at most ``visible_capacity`` (the lowest-index ones past that), are
+    gathered block by block into a sub-arena. The test only selects, so it
+    runs without autograd; the gathered rows keep their gradient.
+
+    Returns:
+        (sub_data (B, V*BLK, 12), sub_slots (B, V*BLK) int32 arena slots,
+        sub_live (B, V*BLK) bool); rows of padding and of unused block
+        entries are dead, and padding rows are zero.
+    """
+    data = map_state.data
+    B, CAP, C = data.shape
+    BLK, V = block_size, visible_capacity
+    NB = -(-CAP // BLK)
+    pad = NB * BLK - CAP
+    live = map_mask(map_state)
+    with torch.no_grad():
+        pts = torch.nn.functional.pad(data[..., 0:3], (0, 0, 0, pad)).reshape(B, NB, BLK, 3)
+        live_blk = torch.nn.functional.pad(live, (0, pad)).reshape(B, NB, BLK)
+        lv = live_blk[..., None].to(pts.dtype)
+        n_in_block = torch.clamp(lv.sum(dim=2), min=1.0)  # (B, NB, 1)
+        centroid = (pts * lv).sum(dim=2) / n_in_block  # (B, NB, 3)
+        radius = torch.sqrt(
+            torch.amax(((pts - centroid[:, :, None]) ** 2).sum(-1) * lv[..., 0], dim=2)
+        )  # (B, NB)
+        block_live = live_blk.any(dim=2)
+
+        # conservative sphere-vs-frustum test in camera space
+        c_cam = transform_pointcloud(centroid, inverse_transformation(pose))
+        z = c_cam[..., 2]
+        K = intrinsics[:, 0] if intrinsics.dim() == 4 else intrinsics
+        fx, fy = K[..., 0, 0][:, None], K[..., 1, 1][:, None]
+        cx, cy = K[..., 0, 2][:, None], K[..., 1, 2][:, None]
+        # a sphere crossing or behind the image plane is visible
+        near = z - radius <= 1e-3
+        z_safe = torch.clamp(z - radius, min=1e-3)
+        z_div = torch.where(z != 0, z, torch.ones_like(z))
+        u = (c_cam[..., 0] * fx + z * cx) / z_div
+        v = (c_cam[..., 1] * fy + z * cy) / z_div
+        mu = radius * fx.abs() / z_safe
+        mv = radius * fy.abs() / z_safe
+        in_view = (
+            (u + mu > -1.0) & (u - mu < W + 1.0) & (v + mv > -1.0) & (v - mv < H + 1.0) & (z + radius > 0)
+        )
+        blk_idx, blk_valid = compact_masked(block_live & (in_view | near), V)  # (B, V)
+
+        offs = torch.arange(BLK, dtype=torch.int32, device=data.device)
+        sub_slots = (blk_idx[:, :, None] * BLK + offs).reshape(B, V * BLK)
+        sub_live = live_blk.gather(1, blk_idx.long()[..., None].expand(B, V, BLK))
+        sub_live = (sub_live & blk_valid[..., None]).reshape(B, V * BLK)
+    # the block gathers, as rows of the arena; padding rows read as zero
+    in_arena = sub_slots < CAP
+    sub_data = _take(data, torch.clamp(sub_slots, max=CAP - 1))
+    if pad:
+        sub_data = torch.where(in_arena[..., None], sub_data, 0.0)
+    return sub_data, sub_slots, sub_live
 
 
 def _resolve_model_rows(mode: str, H: int, W: int, capacity: int) -> bool:
@@ -103,41 +219,56 @@ def _take(x, idx):
 
 def _merge_rows(rows, fa, alpha):
     """Confidence-weighted merge ``(c*m + a*f) / (c + a)`` of (..., 12) map
-    rows with (..., 10) frame attributes at weight ``alpha`` (..., 1)."""
+    rows with (..., 10) frame attributes at weight ``alpha`` (..., 1).
+
+    With (..., 11) attributes (the frame label last) the label channels
+    take the streaming-majority update: a matching label adds ``alpha`` to
+    the confidence, another one subtracts it, and the label flips where the
+    confidence drops below zero. Otherwise they are copied unchanged.
+    """
     cc = rows[..., 9:10]
     cc_new = cc + alpha
     inv = 1.0 / torch.where(cc_new == 0, torch.ones_like(cc_new), cc_new)
+    if fa.shape[-1] > 10:
+        mlab, mconf, flab = rows[..., 10:11], rows[..., 11:12], fa[..., 10:11]
+        conf_new = torch.where(mlab == flab, mconf + alpha, mconf - alpha)
+        label_ch = [torch.where(conf_new >= 0, mlab, flab), conf_new.abs()]
+    else:
+        label_ch = [rows[..., 10:12]]
     return torch.cat(
         [
             (cc * rows[..., 0:3] + alpha * fa[..., 0:3]) * inv,
             (cc * rows[..., 3:6] + alpha * fa[..., 3:6]) * inv,
             (cc * rows[..., 6:9] + alpha * fa[..., 6:9]) * inv,
             cc_new,
-            rows[..., 10:12],
+            *label_ch,
         ],
         dim=-1,
     )
 
 
-def _winner_slots(view, live, frame_attr, pose, intrinsics, dist_th, dot_th, H, W, A, CAP, compact):
-    """Projective association and winner selection against a map view (the
-    arena or its prefix window; view row == arena slot).
+def _winner_slots(view, live, frame_attr, pose, intrinsics, dist_th, dot_th, H, W, A, CAP, compact,
+                  src_slots=None):
+    """Projective association and winner selection against a map view: the
+    arena, its prefix window, or the block-gated sub-arena whose rows sit
+    at arena slots ``src_slots`` (None: view row == arena slot).
 
     ``compact`` compacts the active rows into the (B, A) buffer first;
-    without it the view rows are the candidates (a window no larger than
-    the buffer).
+    without it the view rows are the candidates (a prefix window no larger
+    than the buffer).
 
     Returns:
-        (arena_slot, avalid, wslots): the (B, A) compacted slots and
-        validity (or the view's, uncompacted) and the (B, H*W) winner slot
-        at each pixel, CAP where none.
+        (arena_slot, avalid, wslots): the (B, A) compacted arena slots and
+        validity (or the view's, uncompacted) and the (B, H*W) arena slot
+        of the winner at each pixel, CAP where none.
     """
     B, NA, _ = view.shape
     HW = H * W
     h, w, active = _project_points_to_frame(view[..., 0:3], live, pose, intrinsics, H, W)
     if compact:
-        arena_slot, avalid = compact_masked(active, A)
-        ma = _take(view, arena_slot)
+        idx, avalid = compact_masked(active, A)
+        ma = _take(view, idx)
+        arena_slot = idx if src_slots is None else src_slots.gather(1, idx.long())
         # the pixel again from the gathered rows: the same math on the same
         # values as the projection above
         ha, wa, _ = _project_points_to_frame(ma[..., 0:3], torch.ones_like(avalid), pose, intrinsics, H, W)
@@ -224,7 +355,9 @@ def _append_frame(map_state, data, frame_attr, valid_depth, model_img, win_rows,
     CAP = map_state.capacity
     has_win = model_img < CAP
     new_mask = valid_depth.reshape(B, HW) & ~has_win
-    frame_rows = torch.cat([frame_attr, frame_attr.new_zeros((B, HW, 2))], dim=-1)
+    # appended points carry their frame label at confidence alpha
+    tail = frame_attr[..., 9:10] if frame_attr.shape[-1] > 10 else frame_attr.new_zeros((B, HW, 2))
+    frame_rows = torch.cat([frame_attr, tail], dim=-1)
     out = append_rows_to_map(MapState(data, map_state.num_points), frame_rows, new_mask)
     if not return_active:
         return out
@@ -288,9 +421,15 @@ def fusion_update_compact(
         need_active_set: False when the caller does not reuse the returned
             set as odometry candidates (projective odometry): the dense
             window path then compacts gated rows instead of active rows.
-        block_size, visible_capacity, frame_labels: the spatial-block and
-            semantic-label paths, not ported yet; a value that selects one
-            raises.
+        block_size: associate against the visible blocks of this many rows
+            only (:func:`visible_subarena`), at most ``visible_capacity``
+            of them (default ``max(8, ceil(4*H*W / block_size))``); the
+            merge writes into the whole arena. ``assoc_window`` is ignored
+            on this path, and ``visible_capacity`` without ``block_size``.
+        frame_labels: (B, H, W) semantic labels, fused into the arena's
+            channels 10-11 by streaming majority (see :func:`_merge_rows`);
+            an appended point starts at confidence alpha. Labels enter no
+            gate or winner key, so channels 0-9 are those of a run without.
 
     Returns:
         The new :class:`MapState`; with ``return_active`` also
@@ -300,35 +439,42 @@ def fusion_update_compact(
     """
     if window_merge not in ("dense", "rows"):
         raise ValueError(f"window_merge must be 'dense' or 'rows', got {window_merge!r}")
-    if block_size is not None or visible_capacity is not None:
-        raise NotImplementedError("fusion block gating waits for ROADMAP A8")
-    if frame_labels is not None:
-        raise NotImplementedError("semantic label fusion waits for ROADMAP A8")
     del merge_window
     B, H, W, _ = frame_vertex_global.shape
+    HW = H * W
     CAP = map_state.capacity
     A = active_capacity
-    # packed frame attributes: gv(3) gn(3) rgb(3) alpha(1) -> one gather
+    # packed frame attributes: gv(3) gn(3) rgb(3) alpha(1) [label(1)] -> one gather
     alpha_img = get_alpha(frame_vertex_local, sigma, keepdim=True)
-    frame_attr = torch.cat(
-        [frame_vertex_global, frame_normal_global, rgb_image, alpha_img], dim=-1
-    ).reshape(B, H * W, 10)
+    attrs = [frame_vertex_global, frame_normal_global, rgb_image, alpha_img]
+    if frame_labels is not None:
+        attrs.append(frame_labels.reshape(B, H, W, 1).to(alpha_img.dtype))
+    frame_attr = torch.cat(attrs, dim=-1).reshape(B, HW, -1)
 
-    win = _resolve_assoc_window(assoc_window, CAP)
-    if win is None:
-        view, live, compact = map_state.data, map_mask(map_state), True
+    win = None
+    if block_size is not None:
+        vcap = visible_capacity or max(8, (4 * HW + block_size - 1) // block_size)
+        sub, sub_slots, sub_live = visible_subarena(map_state, pose, intrinsics, H, W, block_size, vcap)
+        arena_slot, avalid, wslots = _winner_slots(
+            sub, sub_live, frame_attr, pose, intrinsics, dist_th, dot_th, H, W, A, CAP, True, sub_slots
+        )
+        view = map_state.data  # the winners' slots are the arena's
     else:
-        view = map_state.data[:, :win]
-        live = torch.arange(win, dtype=torch.int32, device=view.device)[None, :] < map_state.num_points[:, None]
-        compact = win > A
-        if window_merge == "dense":
-            return _fusion_window_dense(
-                map_state, view, live, frame_attr, valid_depth, pose, intrinsics, dist_th, dot_th,
-                H, W, A, compact, return_active, dense_model_rows, need_active_set,
-            )
-    arena_slot, avalid, wslots = _winner_slots(
-        view, live, frame_attr, pose, intrinsics, dist_th, dot_th, H, W, A, CAP, compact
-    )
+        win = _resolve_assoc_window(assoc_window, CAP)
+        if win is None:
+            view, live, compact = map_state.data, map_mask(map_state), True
+        else:
+            view = map_state.data[:, :win]
+            live = torch.arange(win, dtype=torch.int32, device=view.device)[None, :] < map_state.num_points[:, None]
+            compact = win > A
+            if window_merge == "dense":
+                return _fusion_window_dense(
+                    map_state, view, live, frame_attr, valid_depth, pose, intrinsics, dist_th, dot_th,
+                    H, W, A, compact, return_active, dense_model_rows, need_active_set,
+                )
+        arena_slot, avalid, wslots = _winner_slots(
+            view, live, frame_attr, pose, intrinsics, dist_th, dot_th, H, W, A, CAP, compact
+        )
 
     # ---- merge: O(H*W), the winner at each pixel with that pixel's frame row
     wvalid = wslots < CAP
@@ -351,12 +497,26 @@ def aggregate_map_dense(
     sigma: float = 0.6,
     frame_labels: Optional[torch.Tensor] = None,
 ) -> MapState:
-    """Append-only map update: every valid-depth pixel is appended."""
-    if frame_labels is not None:
-        raise NotImplementedError("semantic label fusion waits for ROADMAP A8")
+    """Append-only map update: every valid-depth pixel is appended. With
+    ``frame_labels`` (B, H, W) each point carries its label at confidence
+    alpha in channels 10-11."""
     B, H, W, _ = frame_vertex_global.shape
     HW = H * W
     alpha_img = get_alpha(frame_vertex_local, sigma, keepdim=True)
+    if frame_labels is not None:
+        alpha = alpha_img.reshape(B, HW, 1)
+        rows = torch.cat(
+            [
+                frame_vertex_global.reshape(B, HW, 3),
+                frame_normal_global.reshape(B, HW, 3),
+                rgb_image.reshape(B, HW, 3),
+                alpha,
+                frame_labels.reshape(B, HW, 1).to(alpha.dtype),
+                alpha,
+            ],
+            dim=-1,
+        )
+        return append_rows_to_map(map_state, rows, valid_depth.reshape(B, HW))
     return append_to_map(
         map_state,
         frame_vertex_global.reshape(B, HW, 3),
@@ -365,3 +525,319 @@ def aggregate_map_dense(
         alpha_img.reshape(B, HW, 1),
         valid_depth.reshape(B, HW),
     )
+
+
+# ---------------------------------------------------------------------------
+# Dense association over the whole arena
+# ---------------------------------------------------------------------------
+
+
+def _gather_pixels(img, h, w):
+    """(B, H, W, C) images at (B, N) pixel rows and columns -> (B, N, C)."""
+    B, H, W, C = img.shape
+    return _take(img.reshape(B, H * W, C), h * W + w)
+
+
+def find_correspondences_dense(
+    map_state: MapState,
+    frame_vertex_global: torch.Tensor,
+    frame_normal_global: torch.Tensor,
+    pose: torch.Tensor,
+    intrinsics: torch.Tensor,
+    dist_th: float,
+    dot_th: float,
+) -> DenseCorrespondence:
+    """Projective association, dense over the arena: the map slots that
+    project into the live frame, pass the distance and normal gates
+    against the frame at their pixel, and win their pixel (max ccount, then
+    min ray distance, then min slot: one :func:`pixel_winner` selection
+    with the arena slot as the slot).
+
+    Args:
+        frame_vertex_global / frame_normal_global: (B, H, W, 3).
+        pose: (B, 4, 4) live pose; intrinsics: (B, 1, 4, 4).
+    """
+    B, H, W, _ = frame_vertex_global.shape
+    CAP = map_state.capacity
+    HW = H * W
+    h, w, active = project_map_to_frame(map_state, pose, intrinsics, H, W)
+    fp = _gather_pixels(frame_vertex_global, h, w)
+    fn = _gather_pixels(frame_normal_global, h, w)
+    mp = map_state.points
+    gated = active & are_points_close(fp, mp, dist_th) & are_normals_similar(fn, map_state.normals, dot_th)
+    pix_seg = torch.where(gated, h * W + w, HW)
+    slot = torch.arange(CAP, dtype=torch.int32, device=mp.device).expand(B, CAP)
+    k_hi, k_lo = winner_keys(map_state.ccounts[..., 0], ((mp - fp) ** 2).sum(-1))
+    slots = pixel_winner(pix_seg, k_hi, k_lo, slot, HW, CAP)
+    pix_corr = slots < CAP
+    winner = torch.zeros((B, CAP + 1), dtype=torch.bool, device=mp.device)
+    winner = winner.scatter(1, torch.where(pix_corr, slots, CAP).long(), True)[:, :CAP]
+    return DenseCorrespondence(winner=winner, h=h, w=w, active=active, pix_corr=pix_corr)
+
+
+def fuse_map_dense(
+    map_state: MapState,
+    corr: DenseCorrespondence,
+    frame_vertex_global: torch.Tensor,
+    frame_normal_global: torch.Tensor,
+    frame_vertex_local: torch.Tensor,
+    rgb_image: torch.Tensor,
+    valid_depth: torch.Tensor,
+    sigma: float,
+) -> MapState:
+    """PointFusion map update from a :class:`DenseCorrespondence`: the
+    winners get the confidence-weighted average ``(c*m + a*f) / (c + a)``
+    of points, normals and colors, and every valid-depth pixel without a
+    correspondence is appended with confidence ``alpha``. The label
+    channels are reset to zero, as the JAX package's ``from_arrays`` does.
+    """
+    B, H, W, _ = frame_vertex_global.shape
+    alpha_img = get_alpha(frame_vertex_local, sigma, keepdim=True)
+    fp = _gather_pixels(frame_vertex_global, corr.h, corr.w)
+    fn = _gather_pixels(frame_normal_global, corr.h, corr.w)
+    fc = _gather_pixels(rgb_image, corr.h, corr.w)
+    fa = _gather_pixels(alpha_img, corr.h, corr.w)
+    win = corr.winner[..., None]
+    alpha = torch.where(win, fa, torch.zeros_like(fa))
+    cc = map_state.ccounts
+    cc_new = cc + alpha
+    inv = 1.0 / torch.where(cc_new == 0, torch.ones_like(cc_new), cc_new)
+
+    def merge(old, frame):
+        return torch.where(win, (cc * old + alpha * frame) * inv, old)
+
+    merged = MapState(
+        pack_rows(
+            merge(map_state.points, fp), merge(map_state.normals, fn), merge(map_state.colors, fc),
+            torch.where(win, cc_new, cc),
+        ),
+        map_state.num_points,
+    )
+    HW = H * W
+    return append_to_map(
+        merged,
+        frame_vertex_global.reshape(B, HW, 3),
+        frame_normal_global.reshape(B, HW, 3),
+        rgb_image.reshape(B, HW, 3),
+        alpha_img.reshape(B, HW, 1),
+        valid_depth.reshape(B, HW) & ~corr.pix_corr,
+    )
+
+
+# ---------------------------------------------------------------------------
+# The reference's table-based host API: (num_rows, 4) int64 [b, n, h, w]
+# tables over Pointclouds. The tables are ragged, so building one asks the
+# host for its length (torch.nonzero).
+# ---------------------------------------------------------------------------
+
+
+def _pointclouds_to_mapstate(pointclouds) -> MapState:
+    pts = pointclouds.points_padded
+    feats = pointclouds.features_padded
+    if feats is None:
+        feats = pts.new_zeros(pts.shape[:2] + (1,))
+    normals = pointclouds.normals_padded
+    colors = pointclouds.colors_padded
+    return MapState(
+        pack_rows(
+            pts,
+            torch.zeros_like(pts) if normals is None else normals,
+            torch.zeros_like(pts) if colors is None else colors,
+            feats,
+        ),
+        pointclouds.num_points_per_pointcloud,
+    )
+
+
+def _empty_table(device):
+    return torch.zeros((0, 4), dtype=torch.int64, device=device)
+
+
+def _table_from_mask(mask, h, w):
+    """(B, CAP) mask -> (num_rows, 4) int64 [b, n, h, w] table."""
+    b, n = torch.nonzero(mask, as_tuple=True)
+    return torch.stack([b, n, h[b, n].long(), w[b, n].long()], dim=-1)
+
+
+def find_active_map_points(pointclouds, rgbdimages) -> torch.Tensor:
+    """The map points that project into the live (B, 1) frame.
+
+    Returns:
+        (num_active, 4) int64 table of ``[batch, point, h, w]`` rows,
+        ordered by batch entry and point.
+    """
+    if not pointclouds.has_points:
+        return _empty_table(pointclouds.device)
+    rgbd = rgbdimages.to_channels_last()
+    B, L, H, W = rgbd.shape
+    if L != 1:
+        raise ValueError(f"expected sequence length 1, got {L}")
+    h, w, active = project_map_to_frame(
+        _pointclouds_to_mapstate(pointclouds), rgbd.poses[:, 0], rgbd.intrinsics, H, W
+    )
+    table = _table_from_mask(active, h, w)
+    if table.shape[0] == 0:
+        warnings.warn("No active map points were found")
+    return table
+
+
+def find_similar_map_points(pointclouds, rgbdimages, pc2im_bnhw, dist_th, dot_th):
+    """The rows of an active table whose map point passes the distance and
+    normal gates against the frame at its pixel.
+
+    Returns:
+        (pc2im_bnhw_similar, is_similar_mask (num_active,) bool).
+    """
+    if pc2im_bnhw.shape[0] == 0:
+        dev = pc2im_bnhw.device
+        return _empty_table(dev), torch.zeros((0,), dtype=torch.bool, device=dev)
+    if not pointclouds.has_normals:
+        raise ValueError("pointclouds must have normals")
+    rgbd = rgbdimages.to_channels_last()
+    b, n, h, w = pc2im_bnhw.long().unbind(1)
+    fp = rgbd.global_vertex_map[:, 0][b, h, w]
+    fn = rgbd.global_normal_map[:, 0][b, h, w]
+    mp = pointclouds.points_padded[b, n]
+    mn = pointclouds.normals_padded[b, n]
+    keep = are_points_close(fp, mp, dist_th) & are_normals_similar(fn, mn, dot_th)
+    out = pc2im_bnhw[keep]
+    if out.shape[0] == 0:
+        warnings.warn(
+            "No similar map points were found (despite total {0} active "
+            "points across the batch)".format(pc2im_bnhw.shape[0]),
+            RuntimeWarning,
+        )
+    return out, keep
+
+
+def find_best_unique_correspondences(pointclouds, rgbdimages, pc2im_bnhw) -> torch.Tensor:
+    """One row per pixel among a table's rows: the highest ccount, then the
+    smallest squared ray distance, then the smallest point index.
+
+    The rows go through :func:`pixel_winner` per batch entry (pixel
+    ``h*W + w``, the point index as the slot), padded to the longest entry
+    with rows at no pixel.
+
+    Returns:
+        The winning rows, ordered by ``(batch, h, w)``.
+    """
+    if pc2im_bnhw.shape[0] == 0:
+        return _empty_table(pc2im_bnhw.device)
+    if not pointclouds.has_features:
+        raise ValueError("pointclouds must have features (ccounts)")
+    rgbd = rgbdimages.to_channels_last()
+    B, _, H, W = rgbd.shape
+    HW = H * W
+    tab = pc2im_bnhw.long()
+    b, n, h, w = tab.unbind(1)
+    cc = pointclouds.features_padded[b, n, 0]
+    ray = ((pointclouds.points_padded[b, n] - rgbd.global_vertex_map[:, 0][b, h, w]) ** 2).sum(-1)
+    k_hi, k_lo = winner_keys(cc, ray)
+    # each row's column in its batch entry's padded row of candidates
+    counts = torch.bincount(b, minlength=B)
+    order = torch.argsort(b, stable=True)
+    col = torch.empty_like(b)
+    col[order] = torch.arange(b.shape[0], device=b.device) - (torch.cumsum(counts, 0) - counts)[b[order]]
+    n_max = int(counts.max())
+
+    def padded(val, fill):
+        out = torch.full((B, n_max), fill, dtype=val.dtype, device=val.device)
+        out[b, col] = val
+        return out
+
+    sentinel = pointclouds.capacity
+    slots = pixel_winner(
+        padded((h * W + w).to(torch.int32), HW), padded(k_hi, 0), padded(k_lo, 0),
+        padded(n.to(torch.int32), 0), HW, sentinel,
+    )
+    wb, wp = torch.nonzero(slots < sentinel, as_tuple=True)
+    return torch.stack([wb, slots[wb, wp].long(), wp // W, wp % W], dim=-1)
+
+
+def find_correspondences(pointclouds, rgbdimages, dist_th, dot_th) -> torch.Tensor:
+    """The association pipeline: active, then similar, then the best unique
+    row per pixel."""
+    pc2im = find_active_map_points(pointclouds, rgbdimages)
+    pc2im, _ = find_similar_map_points(pointclouds, rgbdimages, pc2im, dist_th, dot_th)
+    return find_best_unique_correspondences(pointclouds, rgbdimages, pc2im)
+
+
+def _rgbd_frame_arrays(rgbd):
+    return (
+        rgbd.global_vertex_map[:, 0],
+        rgbd.global_normal_map[:, 0],
+        rgbd.vertex_map[:, 0],
+        rgbd.rgb_image[:, 0],
+        rgbd.valid_depth_mask[:, 0, ..., 0],
+    )
+
+
+def update_map_fusion(pointclouds, rgbdimages, dist_th, dot_th, sigma):
+    """PointFusion update on the :class:`Pointclouds` API: the dense
+    association and fusion over an arena one frame larger than the map.
+
+    Returns:
+        The fused map as a new :class:`Pointclouds` (ccounts as features).
+    """
+    rgbd = rgbdimages.to_channels_last()
+    B, L, H, W = rgbd.shape
+    if len(pointclouds) == 0:
+        ms = init_map(B, 0, rgbd.rgb_image.dtype, device=rgbd.device)
+    else:
+        ms = _pointclouds_to_mapstate(pointclouds)
+    ms = MapState(torch.nn.functional.pad(ms.data, (0, 0, 0, H * W)), ms.num_points)
+    gv, gn, lv, rgb, vd = _rgbd_frame_arrays(rgbd)
+    corr = find_correspondences_dense(ms, gv, gn, rgbd.poses[:, 0], rgbd.intrinsics, dist_th, dot_th)
+    return map_to_pointclouds(fuse_map_dense(ms, corr, gv, gn, lv, rgb, vd, sigma))
+
+
+def update_map_aggregate(pointclouds, rgbdimages, inplace: bool = False):
+    """Append-only update on the :class:`Pointclouds` API: every
+    valid-depth pixel of the (B, 1) frame, in world coordinates."""
+    from ..structures.utils import pointclouds_from_rgbdimages
+
+    return pointclouds.append_points(pointclouds_from_rgbdimages(rgbdimages, global_coordinates=True))
+
+
+def fuse_with_map(pointclouds, rgbdimages, pc2im_bnhw, sigma, inplace: bool = False):
+    """Table-based fusion: the confidence-weighted merge at the rows of
+    ``pc2im_bnhw``, then every valid-depth pixel without a row appended.
+
+    Returns:
+        A new :class:`Pointclouds`.
+    """
+    from ..structures import Pointclouds
+
+    rgbd = rgbdimages.to_channels_last()
+    B, L, H, W = rgbd.shape
+    gv, gn, lv, rgb, vd = _rgbd_frame_arrays(rgbd)
+    alpha_img = get_alpha(lv, sigma, keepdim=True)
+    new_mask = vd.bool()
+    if pointclouds.has_points and pc2im_bnhw.shape[0] != 0:
+        b, n, h, w = pc2im_bnhw.long().unbind(1)
+        fa = alpha_img[b, h, w]
+        cc_rows = pointclouds.features_padded[b, n]
+        cc_new_rows = cc_rows + fa
+
+        def merge(old_all, frame_rows):
+            out = old_all.clone()
+            out[b, n] = (cc_rows * old_all[b, n] + fa * frame_rows) / cc_new_rows
+            return out
+
+        pointclouds = pointclouds.clone()
+        pointclouds.points_padded = merge(pointclouds.points_padded, gv[b, h, w])
+        pointclouds.normals_padded = merge(pointclouds.normals_padded, gn[b, h, w])
+        pointclouds.colors_padded = merge(pointclouds.colors_padded, rgb[b, h, w])
+        feats = pointclouds.features_padded.clone()
+        feats[b, n] = cc_new_rows
+        pointclouds.features_padded = feats
+        corr_px = torch.zeros((B, H, W), dtype=torch.bool, device=new_mask.device)
+        corr_px[b, h, w] = True
+        new_mask = new_mask & ~corr_px
+    new_pc = Pointclouds(
+        points=[gv[i][new_mask[i]] for i in range(B)],
+        normals=[gn[i][new_mask[i]] for i in range(B)],
+        colors=[rgb[i][new_mask[i]] for i in range(B)],
+        features=[alpha_img[i][new_mask[i]] for i in range(B)],
+    )
+    return pointclouds.append_points(new_pc)

@@ -66,9 +66,8 @@ class SLAMOptions:
     """Static SLAM configuration; the fields and defaults of the JAX
     package's ``SLAMOptions``.
 
-    ``block_size`` (a path not ported yet) raises ``NotImplementedError``
-    when the step runs; ``merge_window`` only shapes the JAX package's TPU
-    layout and is accepted and ignored.
+    ``merge_window`` only shapes the JAX package's TPU layout and is
+    accepted and ignored.
     """
 
     odom: str = "gradicp"  # 'gt' | 'icp' | 'gradicp'
@@ -98,12 +97,6 @@ class SLAMOptions:
     odom_targets: str = "map"  # aggregate mapping: 'map' | 'recent'
     model_rows: str = "auto"  # projective targets: 'gather' | 'dense' | 'auto'
     window_merge: str = "dense"  # assoc_window merge: 'dense' | 'rows'
-
-
-def _check_ported(opts: SLAMOptions) -> None:
-    """Raises for an option value that selects a path not ported yet."""
-    if opts.block_size is not None:
-        raise NotImplementedError("block_size (spatial block gating) waits for ROADMAP A8")
 
 
 def _frame_maps_local(depth, intrinsics):
@@ -251,8 +244,9 @@ def _localize_projective(map_state, prev_pose, model_img, rgb, depth, intrinsics
 
 
 def _map_update(map_state, pose, rgb, depth, intrinsics, opts: SLAMOptions,
-                return_active: bool = False, local_maps=None):
-    """Mapping: fuse (or aggregate) the live frame into the arena.
+                return_active: bool = False, labels=None, local_maps=None):
+    """Mapping: fuse (or aggregate) the live frame, and its optional (B, H, W)
+    semantic ``labels``, into the arena.
 
     With ``return_active`` the fusion path also returns
     ``(slots, valid, model_img, model_rows or None)``.
@@ -267,6 +261,7 @@ def _map_update(map_state, pose, rgb, depth, intrinsics, opts: SLAMOptions,
             opts.active_capacity or 2 * H * W,
             opts.block_size, opts.visible_capacity,
             return_active=return_active,
+            frame_labels=labels,
             merge_window=opts.merge_window,
             assoc_window=opts.assoc_window,
             dense_model_rows=dense,
@@ -278,7 +273,7 @@ def _map_update(map_state, pose, rgb, depth, intrinsics, opts: SLAMOptions,
             return ret
         out, active = ret
         return out, ((*active, None) if len(active) == 3 else active)
-    out = aggregate_map_dense(map_state, gv, gn, vm, rgb, valid, opts.sigma)
+    out = aggregate_map_dense(map_state, gv, gn, vm, rgb, valid, opts.sigma, frame_labels=labels)
     return (out, None) if return_active else out
 
 
@@ -286,7 +281,6 @@ def slam_step(map_state: MapState, prev_pose, rgb, depth, intrinsics, opts: SLAM
               gt_pose=None):
     """One SLAM step on a bare arena: localize (full-arena candidates),
     then map. Returns ``(new_map_state, pose)``."""
-    _check_ported(opts)
     if opts.odom == "gt":
         if gt_pose is None:
             raise ValueError("gt odometry requires gt_pose")
@@ -332,11 +326,9 @@ class SLAMState(NamedTuple):
 
 def slam_init_state(rgb, depth, intrinsics, opts: SLAMOptions, capacity: int, pose0=None,
                     labels=None) -> SLAMState:
-    """Maps the first (B, H, W, .) frame into a fresh arena of ``capacity``
-    rows at ``pose0`` (identity when None)."""
-    _check_ported(opts)
-    if labels is not None:
-        raise NotImplementedError("semantic labels wait for ROADMAP A8")
+    """Maps the first (B, H, W, .) frame, and its optional (B, H, W)
+    semantic ``labels``, into a fresh arena of ``capacity`` rows at
+    ``pose0`` (identity when None)."""
     B, H, W, _ = rgb.shape
     dev, dtype = rgb.device, rgb.dtype
     map_state = init_map(B, capacity, dtype, device=dev)
@@ -346,10 +338,10 @@ def slam_init_state(rgb, depth, intrinsics, opts: SLAMOptions, capacity: int, po
     app_start = map_state.num_points
     if opts.fusion:
         map_state, (slots, valid, model_img, model_rows) = _map_update(
-            map_state, pose0, rgb, depth, intrinsics, opts, return_active=True
+            map_state, pose0, rgb, depth, intrinsics, opts, return_active=True, labels=labels
         )
     else:
-        map_state = _map_update(map_state, pose0, rgb, depth, intrinsics, opts)
+        map_state = _map_update(map_state, pose0, rgb, depth, intrinsics, opts, labels=labels)
         slots = torch.zeros((B, A), dtype=torch.int32, device=dev)
         valid = torch.zeros((B, A), dtype=torch.bool, device=dev)
         model_img = torch.full((B, H * W), capacity, dtype=torch.int32, device=dev)
@@ -364,10 +356,8 @@ def slam_step_state(state: SLAMState, rgb, depth, intrinsics, opts: SLAMOptions,
     With fusion and ICP odometry, the odometry candidates are the carried
     fusion active set plus the last frame's appends, not the whole arena;
     with ``assoc='projective'`` the target is the carried model image.
+    ``labels`` (B, H, W) are the frame's semantic labels.
     """
-    _check_ported(opts)
-    if labels is not None:
-        raise NotImplementedError("semantic labels wait for ROADMAP A8")
     if opts.odom == "gt":
         if gt_pose is None:
             raise ValueError("gt odometry requires gt_pose")
@@ -396,10 +386,11 @@ def slam_step_state(state: SLAMState, rgb, depth, intrinsics, opts: SLAMOptions,
     if opts.fusion:
         m, (slots, valid, model_img, model_rows) = _map_update(
             state.map_state, pose, rgb, depth, intrinsics, opts,
-            return_active=True, local_maps=local_maps,
+            return_active=True, labels=labels, local_maps=local_maps,
         )
     else:
-        m = _map_update(state.map_state, pose, rgb, depth, intrinsics, opts, local_maps=local_maps)
+        m = _map_update(state.map_state, pose, rgb, depth, intrinsics, opts, labels=labels,
+                        local_maps=local_maps)
         slots, valid, model_img = state.cand_slots, state.cand_valid, state.model_img
         model_rows = state.model_rows
     return SLAMState(m, pose, slots, valid, app_start, model_img, model_rows)
@@ -414,21 +405,22 @@ def slam_sequence(rgb_seq, depth_seq, intrinsics, poses_seq, opts: SLAMOptions, 
         intrinsics: (B, 1, 4, 4).
         poses_seq: (B, L, 4, 4) ground-truth / seed poses, or None.
         capacity: arena capacity.
+        labels_seq: optional (B, L, H, W) semantic labels, fused into the
+            arena's channels 10-11 (``MapState.labels``, ``label_conf``).
 
     Returns:
         (map_state, poses (B, L, 4, 4)).
     """
-    if labels_seq is not None:
-        raise NotImplementedError("semantic labels wait for ROADMAP A8")
     L = rgb_seq.shape[1]
     if opts.odom == "gt" and poses_seq is None:
         raise ValueError("gt odometry requires poses")
     pose0 = None if poses_seq is None else poses_seq[:, 0]
-    state = slam_init_state(rgb_seq[:, 0], depth_seq[:, 0], intrinsics, opts, capacity, pose0)
+    lab = (lambda t: None) if labels_seq is None else (lambda t: labels_seq[:, t])
+    state = slam_init_state(rgb_seq[:, 0], depth_seq[:, 0], intrinsics, opts, capacity, pose0, labels=lab(0))
     poses = [state.pose]
     for t in range(1, L):
         gt = poses_seq[:, t] if opts.odom == "gt" else None
-        state = slam_step_state(state, rgb_seq[:, t], depth_seq[:, t], intrinsics, opts, gt)
+        state = slam_step_state(state, rgb_seq[:, t], depth_seq[:, t], intrinsics, opts, gt, labels=lab(t))
         poses.append(state.pose)
     return state.map_state, torch.stack(poses, dim=1)
 
@@ -546,7 +538,6 @@ class ICPSLAM:
             dist_thresh=dist_thresh, fusion=self._fusion, map_capacity=map_capacity,
             tgt_capacity=tgt_capacity, **kwargs,
         )
-        _check_ported(self.opts)
 
     def __call__(self, frames: RGBDImages):
         return self.forward(frames)

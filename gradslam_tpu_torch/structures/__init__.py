@@ -21,6 +21,7 @@ from .maparena import (
     pack_rows,
 )
 from .structutils import list_to_padded, padded_to_list
+from .utils import pointclouds_from_rgbdimages
 
 __all__ = [
     "RGBDImages",
@@ -33,6 +34,7 @@ __all__ = [
     "append_to_map",
     "compact_map",
     "map_to_pointclouds",
+    "pointclouds_from_rgbdimages",
     "map_state_from_numpy",
     "map_state_to_numpy",
     "list_to_padded",

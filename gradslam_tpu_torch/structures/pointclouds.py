@@ -2,7 +2,9 @@
 
 Only the padded form (plus per-cloud counts) lives on the device; the list
 view is a host-boundary convenience. Operators return new
-:class:`Pointclouds`. Plotting and open3d export are not ported yet.
+:class:`Pointclouds` (the reference's trailing-underscore names are aliases
+of them); the padded setters are the one in-place change. Plotting and
+open3d export are not ported yet.
 """
 
 from __future__ import annotations
@@ -11,7 +13,8 @@ from typing import List, Optional, Sequence
 
 import torch
 
-from ..geometry import transform_normals, transform_pointcloud
+from ..geometry import project_points, transform_normals, transform_pointcloud
+from ..geometry.projutils import homogenize_points
 from .structutils import list_to_padded
 
 __all__ = ["Pointclouds"]
@@ -135,6 +138,11 @@ class Pointclouds:
         return self._features is not None
 
     @property
+    def equisized(self):
+        """True when every cloud holds the same number of points."""
+        return len(self) == 0 or bool((self._num_points == self._num_points[0]).all())
+
+    @property
     def num_points_per_pointcloud(self):
         return self._num_points
 
@@ -165,6 +173,38 @@ class Pointclouds:
     @property
     def features_padded(self):
         return self._features
+
+    def _assert_set_padded(self, value, expect_dim=None):
+        """Checks a padded attribute before it is set: (B, N, C) of the
+        points' (B, N), C = ``expect_dim`` when given, zero outside
+        :attr:`nonpad_mask`."""
+        value = torch.as_tensor(value, device=self.device)
+        if value.dim() != 3 or tuple(value.shape[:2]) != tuple(self._points.shape[:2]):
+            raise ValueError(
+                f"padded value must be ({self._points.shape[0]}, {self._points.shape[1]}, C), "
+                f"got {tuple(value.shape)}"
+            )
+        if expect_dim is not None and value.shape[2] != expect_dim:
+            raise ValueError(f"expected last dim {expect_dim}, got {value.shape[2]}")
+        if bool((value.detach()[~self.nonpad_mask] != 0).any()):
+            raise ValueError("padded values must be zero outside nonpad_mask")
+        return value
+
+    @points_padded.setter
+    def points_padded(self, value):
+        self._points = self._assert_set_padded(value, 3)
+
+    @normals_padded.setter
+    def normals_padded(self, value):
+        self._normals = self._assert_set_padded(value, 3)
+
+    @colors_padded.setter
+    def colors_padded(self, value):
+        self._colors = self._assert_set_padded(value, 3)
+
+    @features_padded.setter
+    def features_padded(self, value):
+        self._features = self._assert_set_padded(value)
 
     # -- list accessors (host boundary) ----------------------------------
     def _to_list(self, padded) -> Optional[List[torch.Tensor]]:
@@ -197,7 +237,62 @@ class Pointclouds:
             raise IndexError("Pointclouds supports int/slice batch indexing")
         return self._map(lambda x: x[index])
 
+    # -- arithmetic on the points (padding stays zero) --------------------
+    def _points_only(self, fn):
+        mask = self.nonpad_mask[..., None].to(self._points.dtype)
+        return Pointclouds._from_padded(
+            fn(self._points) * mask, self._normals, self._colors, self._features, self._num_points
+        )
+
+    def _as(self, x):
+        return torch.as_tensor(x, dtype=self._points.dtype, device=self.device)
+
+    def offset(self, offset):
+        """Adds ``offset`` (a scalar, (3,) or broadcastable) to the points."""
+        return self._points_only(lambda p: p + self._as(offset))
+
+    def __add__(self, other):
+        return self.offset(other)
+
+    def __sub__(self, other):
+        return self.offset(-self._as(other))
+
+    def scale(self, scale):
+        """Multiplies the points by ``scale``."""
+        return self._points_only(lambda p: p * self._as(scale))
+
+    def __mul__(self, other):
+        return self.scale(other)
+
+    def __truediv__(self, other):
+        return self.scale(1.0 / self._as(other))
+
+    def __matmul__(self, transform):
+        """Post-multiplies the points by a (3, 3) or (4, 4) matrix:
+        ``p @ M``, or ``[p, 1] @ T`` cut to three columns."""
+        transform = self._as(transform)
+        if tuple(transform.shape[-2:]) == (3, 3):
+            return self._points_only(lambda p: torch.matmul(p, transform))
+        if tuple(transform.shape[-2:]) == (4, 4):
+            return self._points_only(lambda p: torch.matmul(homogenize_points(p), transform)[..., :3])
+        raise ValueError(f"transform must be (3,3) or (4,4), got {tuple(transform.shape)}")
+
     # -- rigid transforms ------------------------------------------------
+    def rotate(self, rmat):
+        """Rotates points and normals by a (3, 3) or (B, 3, 3) matrix."""
+        rmat = self._as(rmat)
+        if tuple(rmat.shape[-2:]) != (3, 3):
+            raise ValueError(f"rmat must be (..., 3, 3), got {tuple(rmat.shape)}")
+        if rmat.dim() == 2:
+            rmat = rmat[None]
+        mask = self.nonpad_mask[..., None].to(self._points.dtype)
+        rot = lambda x: torch.einsum("bij,bnj->bni", rmat, x) * mask
+        return Pointclouds._from_padded(
+            rot(self._points),
+            None if self._normals is None else rot(self._normals),
+            self._colors, self._features, self._num_points,
+        )
+
     def transform(self, transform: torch.Tensor) -> "Pointclouds":
         """Applies a (4, 4) or (B, 4, 4) rigid transform to the points and
         rotates the normals; padding stays zero."""
@@ -215,6 +310,19 @@ class Pointclouds:
         return Pointclouds._from_padded(
             pts, nrm, self._colors, self._features, self._num_points
         )
+
+    def pinhole_projection(self, intrinsics):
+        """Projects the points onto the image plane: each becomes the
+        homogeneous pixel ``[u, v, 1]``; padding stays zero."""
+        uv = project_points(self._points, self._as(intrinsics))
+        return self._points_only(lambda p: homogenize_points(uv))
+
+    # the reference's in-place names, as functional aliases
+    rotate_ = rotate
+    transform_ = transform
+    pinhole_projection_ = pinhole_projection
+    offset_ = offset
+    scale_ = scale
 
     # -- append ----------------------------------------------------------
     def append_points(self, other: "Pointclouds") -> "Pointclouds":
@@ -253,6 +361,14 @@ class Pointclouds:
 
     def detach(self):
         return self._map(torch.Tensor.detach)
+
+    def astype(self, dtype):
+        """The points, normals, colors and features cast to ``dtype``."""
+        cast = lambda x: None if x is None else x.to(dtype)
+        return Pointclouds._from_padded(
+            cast(self._points), cast(self._normals), cast(self._colors), cast(self._features),
+            self._num_points,
+        )
 
     def to(self, device):
         """Moves every tensor to ``device``."""

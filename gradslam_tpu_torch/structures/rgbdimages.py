@@ -193,6 +193,19 @@ class RGBDImages:
     def w(self):
         return self._rgb.shape[3]
 
+    @property
+    def cdim(self):
+        """The channel dim in the active layout: 2 channels-first, else 4."""
+        return 2 if self.channels_first else 4
+
+    @property
+    def pixel_pos(self):
+        """(B, L, H, W, 3) homogeneous pixel positions ``[u, v, 1]``, in
+        the active layout."""
+        B, L, H, W = self.shape
+        rays = pixel_rays(H, W, self._rgb.dtype, self.device)
+        return self._layout(rays.expand(B, L, H, W, 3))
+
     # -- raw data -------------------------------------------------------
     def _layout(self, x):
         return _to_channels_first(x) if self.channels_first else x
@@ -310,6 +323,34 @@ class RGBDImages:
         out = self.to_channels_last()
         out.channels_first = True
         return out
+
+    def to_channels_last_(self):
+        """Switches the layout flag in place (storage is channels-last)."""
+        self.channels_first = False
+        return self
+
+    def to_channels_first_(self):
+        """Switches the layout flag in place (storage is channels-last)."""
+        self.channels_first = True
+        return self
+
+    def _derived(self, fn, keep_cache=False):
+        """A new instance of every tensor through ``fn``, in this layout."""
+        out = self._new(fn(self._rgb), fn(self._depth), fn(self._intrinsics),
+                        None if self._poses is None else fn(self._poses))
+        out.channels_first = self.channels_first
+        if keep_cache:
+            out._cache = dict(self._cache)
+        return out
+
+    def astype(self, dtype):
+        return self._derived(lambda x: x.to(dtype))
+
+    def detach(self):
+        return self._derived(torch.Tensor.detach)
+
+    def clone(self):
+        return self._derived(torch.clone, keep_cache=True)
 
     def to(self, device):
         """Moves every tensor to ``device``."""

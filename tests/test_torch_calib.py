@@ -9,6 +9,14 @@ its value and the gradient within 1e-3 of its largest component. The loss
 is the mean square of position errors of ~5e-5 m, so float32 rounding of
 the poses moves it relatively more than it moves them: the measured gaps
 are up to 1.8e-4 in the loss and 2e-4 in the gradient.
+
+On the clip cycled to L=10 at full width (B=2, ``PointFusion()`` defaults,
+where frame 3 jumps back to frame 0), both packages' d/d(scale) change sign
+above the true scale: at 1.1286 both point away from 1.1, at 1.1554 both
+toward it. The loss there is the square of ~4e-5 m position errors, so the
+port is held to what a 1e-6 m difference in the positions can make (the
+measured gap is 1.25e-11 on a loss of 1.84e-9, 0.68%), the gradient's sign
+exactly and its value within 1e-2 (measured 0.41%).
 """
 
 import pathlib
@@ -104,3 +112,43 @@ def test_calibration_loop_recovers_the_scale(half_clip):
     assert abs(params.scale.item() - TRUE_SCALE) <= 0.01, params.scale.item()
     assert params.bias.item() == 0.0
     assert losses[-1] < 0.01 * losses[0]
+
+
+@pytest.fixture(scope="module")
+def cycled_clip():
+    """The golden clip cycled to L=10 at full width, the depth a sensor of
+    scale 1/1.1 sees, and the JAX package's trajectory on the clean depths."""
+    idx = [i % 3 for i in range(10)]
+    colors = np.load(DATA / "colors.npy")[:, idx].astype(np.float32)
+    depths = np.load(DATA / "depths.npy")[:, idx].astype(np.float32)
+    K = np.load(DATA / "intrinsics.npy").astype(np.float32)
+    L, H, W = colors.shape[1:4]
+    _, gt = JS.slam_sequence(jnp.asarray(colors), jnp.asarray(depths), jnp.asarray(K), None,
+                             JS.SLAMOptions(odom="gradicp", fusion=True), L * H * W)
+    return colors, (depths / TRUE_SCALE).astype(np.float32), K, np.array(gt)
+
+
+@pytest.mark.parametrize("scale", [1.10, 1.1286, 1.1554])
+def test_cycled_clip_loss_and_gradient_sign_match_jax(cycled_clip, scale):
+    colors, observed, K, gt = cycled_clip
+    L, H, W = colors.shape[1:4]
+    cap = L * H * W
+    jparams = JP.DepthCalibParams(scale=jnp.asarray(scale, jnp.float32), bias=jnp.asarray(0.0, jnp.float32))
+    loss_j, grad_j = jax.value_and_grad(JP.slam_loss)(
+        jparams, jnp.asarray(colors), jnp.asarray(observed), jnp.asarray(K), jnp.asarray(gt),
+        JS.SLAMOptions(odom="gradicp", fusion=True), cap,
+    )
+    params = depth_calib_from_numpy(np.float32(scale), np.float32(0.0), device="cpu")
+    loss = slam_loss(params, torch.from_numpy(colors), torch.from_numpy(observed), torch.from_numpy(K),
+                     torch.from_numpy(gt), TS.SLAMOptions(odom="gradicp", fusion=True), cap)
+    loss.backward()
+    lj, lt = float(loss_j), loss.item()
+    gj, gt_ = float(grad_j.scale), float(params.scale.grad)
+    if scale == TRUE_SCALE:
+        # the minimum: both losses at float32's floor, the gradient noise
+        assert lj < 1e-13 and lt < 1e-13, (lj, lt)
+        return
+    assert abs(lt - lj) <= 2 * np.sqrt(lj) * 1e-6, (lt, lj)
+    assert np.sign(gt_) == np.sign(gj) and abs(gt_ - gj) <= 1e-2 * abs(gj), (gt_, gj)
+    # the roughness is the input's: past 1.12 the sign changes from one scale to the next
+    assert (gj < 0) == (scale == 1.1286), gj

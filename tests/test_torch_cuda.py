@@ -386,3 +386,121 @@ def test_metrics_on_the_card_match_the_cpu(cuda_device):
     (traj, recon), (traj_c, recon_c) = out
     assert torch.isfinite(traj).all() and float((traj - traj_c).abs().max()) <= 1e-6
     torch.testing.assert_close(recon, recon_c, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("path", ["gated", "labels", "labels projective"])
+def test_gated_and_labelled_runs_on_the_card_match_the_cpu(cuda_device, path):
+    """Block-gated fusion (blocks of 1024 rows) and label fusion on the
+    card: the poses within 1e-4 of the CPU's, the counts within 0.5%, one
+    winner launch per fusion step and 40 KNN launches per frame step on the
+    KNN paths; under one constant label every live label is that label and
+    its confidence the ccount."""
+    from gradslam_tpu_torch.slam import SLAMOptions, slam_sequence
+
+    c, d, K = _clip()
+    B, L, H, W = c.shape[:4]
+    kw = dict(odom="gradicp", fusion=True)
+    if path == "gated":
+        kw["block_size"] = 1024
+    if path == "labels projective":
+        kw.update(assoc="projective", assoc_window=2 * H * W)
+    labels = None if path == "gated" else np.full((B, L, H, W), 7.0, np.float32)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        t = lambda x: None if x is None else torch.from_numpy(x).to(dev)
+        before = (knn_kernel.launches, winner_kernel.launches)
+        m, poses = slam_sequence(t(c), t(d), t(K), None, SLAMOptions(**kw), L * H * W, labels_seq=t(labels))
+        launches = (knn_kernel.launches - before[0], winner_kernel.launches - before[1])
+        out[dev.type] = (poses.cpu().numpy(), m.num_points.cpu().numpy())
+        if dev.type == "cuda":
+            knn_calls = 0 if "projective" in path else (L - 1) * 40
+            assert launches == (knn_calls, L)
+        if labels is not None:
+            for b in range(B):
+                n = int(m.num_points[b])
+                assert (m.labels[b, :n] == 7.0).all()
+                assert torch.equal(m.label_conf[b, :n], m.ccounts[b, :n, 0])
+    assert np.abs(out["cuda"][0] - out["cpu"][0]).max() < 1e-4
+    assert np.all(np.abs(out["cuda"][1] - out["cpu"][1]) <= 0.005 * out["cpu"][1])
+
+
+def test_find_correspondences_dense_at_scannet_capacity(cuda_device):
+    """``find_correspondences_dense`` over a whole 1,228,800-row arena (16
+    noisy copies of a 240x320 frame): one winner launch, bit-equal to the
+    plain version on the same inputs, and the same correspondences as the
+    CPU."""
+    from gradslam_tpu_torch.slam import find_correspondences_dense, fusionutils
+    from gradslam_tpu_torch.structures import MapState, pack_rows
+
+    c, d, K = _clip()
+    rgbd = RGBDImages(c[:, :1].repeat(2, 2).repeat(2, 3), d[:, :1].repeat(2, 2).repeat(2, 3),
+                      K * np.array([2, 2, 1, 1], np.float32)[:, None], device=cuda_device)
+    B, _, H, W = rgbd.shape
+    gv, gn = rgbd.global_vertex_map[:, 0].reshape(B, H * W, 3), rgbd.global_normal_map[:, 0].reshape(B, H * W, 3)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    copies = 16
+    pts = gv.repeat(1, copies, 1) + 1e-3 * torch.randn((B, copies * H * W, 3), generator=gen, device=cuda_device)
+    cc = torch.randint(1, 4, (B, copies * H * W, 1), generator=gen, device=cuda_device).float()
+    ms = MapState(pack_rows(pts, gn.repeat(1, copies, 1), torch.zeros_like(pts), cc),
+                  torch.full((B,), copies * H * W, dtype=torch.int32, device=cuda_device))
+    assert ms.capacity == 1_228_800
+    calls, real = [], fusionutils.pixel_winner
+
+    def recording(*a):
+        calls.append(tuple(x.clone() if torch.is_tensor(x) else x for x in a))
+        return real(*a)
+
+    args = (rgbd.global_vertex_map[:, 0], rgbd.global_normal_map[:, 0], torch.eye(4, device=cuda_device)
+            .expand(B, 4, 4), rgbd.intrinsics, 0.05, 0.93969262)
+    fusionutils.pixel_winner = recording
+    try:
+        before = winner_kernel.launches
+        corr = find_correspondences_dense(ms, *args)
+        assert winner_kernel.launches == before + 1
+    finally:
+        fusionutils.pixel_winner = real
+    (pix, k_hi, k_lo, slot, P, sentinel), = calls
+    assert pix.shape == (B, 1_228_800)
+    assert torch.equal(pixel_winner(pix, k_hi, k_lo, slot, P, sentinel),
+                       pixel_winner_reference(pix, k_hi, k_lo, slot, P, sentinel))
+    assert int(corr.pix_corr.sum()) > 0.5 * B * H * W
+    cpu = find_correspondences_dense(MapState(ms.data.cpu(), ms.num_points.cpu()),
+                                     *(x.cpu() if torch.is_tensor(x) else x for x in args))
+    for name in ("winner", "pix_corr", "h", "w", "active"):
+        assert torch.equal(getattr(corr, name).cpu(), getattr(cpu, name)), name
+
+
+def test_gradicp_provider_knn_calls_are_bit_equal(cuda_device):
+    """The GradICP provider on frames 0 -> 1 of the golden clip: each KNN
+    call of its solve is one kernel launch, bit-equal to the plain version,
+    and the transform is the CPU's within 1e-4."""
+    from gradslam_tpu_torch.odometry import GradICPOdometryProvider, downsample_rgbdimages, icputils
+    from gradslam_tpu_torch.structures import pointclouds_from_rgbdimages
+
+    c, d, K = _clip()
+    poses = np.load(DATA / "poses.npy").astype(np.float32)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        frame = lambda s: RGBDImages(c[:, s : s + 1], d[:, s : s + 1], K, poses[:, s : s + 1], device=dev)
+        calls, real = [], icputils.knn
+
+        def recording(src, tgt, tgt_valid=None):
+            calls.append((src.detach().clone(), tgt))
+            return real(src, tgt, tgt_valid)
+
+        icputils.knn = recording
+        try:
+            before = knn_kernel.launches
+            T = GradICPOdometryProvider().provide(pointclouds_from_rgbdimages(frame(0)),
+                                                  downsample_rgbdimages(frame(1), 4))
+            launched = knn_kernel.launches - before
+        finally:
+            icputils.knn = real
+        out[dev.type] = T.cpu()
+        if dev.type == "cuda":
+            assert launched == len(calls) == 40
+            for src, tgt in calls:
+                dk, ik = knn(src, tgt)
+                dp, ip = knn_reference(src, tgt.tgt, tgt.valid)
+                assert torch.equal(ik, ip) and torch.equal(dk, dp)
+    assert float((out["cuda"] - out["cpu"]).abs().max()) < 1e-4

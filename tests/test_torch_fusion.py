@@ -20,8 +20,8 @@ import gradslam_tpu.slam.fusionutils as JF
 from gradslam_tpu.slam import icpslam as JS
 from gradslam_tpu.structures.maparena import MapState as JMapState
 import gradslam_tpu_torch.slam.fusionutils as TF
+from gradslam_tpu_torch import PointFusion
 from gradslam_tpu_torch.ops.winner import winner_keys, winner_order_keys
-from gradslam_tpu_torch.slam import icpslam as TS
 from gradslam_tpu_torch.structures.maparena import map_state_from_numpy
 
 torch.set_num_threads(2)
@@ -150,13 +150,16 @@ def test_alpha_and_gates():
 
 
 def test_unported_paths_raise(mid_sequence):
+    """Block gating and labels run now; loop closure is the one path left
+    that raises, and ``block_size`` with ``assoc_window`` is refused."""
     ms = mid_sequence
     tstate = map_state_from_numpy(ms["data"], ms["num_points"], device="cpu")
     args = _args(ms, lambda x: torch.from_numpy(np.array(x)))
     labels = torch.zeros((2, H, W), dtype=torch.int32)
     for kw in (dict(block_size=256), dict(visible_capacity=64), dict(frame_labels=labels)):
-        with pytest.raises(NotImplementedError):
-            TF.fusion_update_compact(tstate, *args, 0.05, 0.9, 0.6, 100, **kw)
+        out = TF.fusion_update_compact(tstate, *args, 0.05, 0.9, 0.6, 100, **kw)
+        assert (out.num_points >= tstate.num_points).all()
     with pytest.raises(NotImplementedError):
-        TS.slam_step(tstate, torch.from_numpy(ms["pose"]), None, None, None,
-                     TS.SLAMOptions(block_size=256))
+        PointFusion(loop_closure="pose", device="cpu")
+    with pytest.raises(ValueError):
+        PointFusion(block_size=256, assoc_window=2 * H * W, device="cpu")

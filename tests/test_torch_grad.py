@@ -6,8 +6,11 @@ msrd clip at 30x40, B=2, L=3, gradicp with 3 iterations, dsratio 2) is
 differentiated with respect to the depth maps in both packages from the
 same numpy inputs, for every mapping path: exact fusion (``PointFusion()``),
 projective association with a 2*H*W window, the windowed 'dense' and
-'rows' merges, and aggregate mapping (``ICPSLAM``). Tolerance: 1e-3 of the
-largest |JAX gradient|; the measured gap is at most 2.6e-5 of it. Every
+'rows' merges, aggregate mapping (``ICPSLAM``), block-gated fusion and
+exact fusion with semantic labels. Tolerance: 1e-3 of the largest |JAX
+gradient|; the measured gap is at most 2.6e-5 of it. The gated path's
+gradient is the ungated one's to 1e-6 of its largest value: the visible
+sub-arena only selects which rows are associated. Every
 path appends through ``maparena.scatter_rows``, whose gradient gave each
 kept row its slot's gradient once per dropped row as well (up to 4,500x
 the JAX gradient here) until its fallback writers were detached.
@@ -46,7 +49,15 @@ PATHS = {
     "dense window": dict(fusion=True, assoc_window=2 * H * W),
     "rows window": dict(fusion=True, assoc_window=2 * H * W, window_merge="rows"),
     "ICPSLAM": dict(fusion=False),
+    "gated": dict(fusion=True, block_size=256),
+    "PointFusion + labels": dict(fusion=True, labels=True),
 }
+
+
+def _labels(B, L):
+    """Two classes, the left and right halves of every frame."""
+    lab = np.where(np.arange(W)[None, :] < W // 2, 1.0, 2.0)
+    return np.broadcast_to(lab, (B, L, H, W)).astype(np.float32).copy()
 
 
 def _pose_loss(poses):
@@ -59,19 +70,37 @@ def test_depth_gradient_matches_jax(path):
     assert colors.shape[2:4] == (H, W)
     cap = colors.shape[1] * H * W
     kw = dict(odom="gradicp", numiters=3, dsratio=2, **PATHS[path])
+    labels = _labels(*colors.shape[:2]) if kw.pop("labels", False) else None
 
     def jax_loss(d):
-        _, poses = JS.slam_sequence(jnp.asarray(colors), d, jnp.asarray(K), None, JS.SLAMOptions(**kw), cap)
+        _, poses = JS.slam_sequence(jnp.asarray(colors), d, jnp.asarray(K), None, JS.SLAMOptions(**kw), cap,
+                                    labels_seq=None if labels is None else jnp.asarray(labels))
         return _pose_loss(poses)
 
     gj = np.asarray(jax.grad(jax_loss)(jnp.asarray(depths)))
     d = torch.from_numpy(depths).requires_grad_(True)
-    _, poses = TS.slam_sequence(torch.from_numpy(colors), d, torch.from_numpy(K), None, TS.SLAMOptions(**kw), cap)
+    _, poses = TS.slam_sequence(torch.from_numpy(colors), d, torch.from_numpy(K), None, TS.SLAMOptions(**kw), cap,
+                                labels_seq=None if labels is None else torch.from_numpy(labels))
     _pose_loss(poses).backward()
     scale = np.abs(gj).max()
     assert scale > 0 and np.isfinite(gj).all()
     err = np.abs(d.grad.numpy() - gj).max()
     assert err <= 1e-3 * scale, (path, err / scale)
+
+
+def test_gated_gradient_equals_ungated():
+    colors, depths, K = _clip(4)
+    cap = colors.shape[1] * H * W
+    grads = []
+    for gate in ({}, dict(block_size=256)):
+        d = torch.from_numpy(depths).requires_grad_(True)
+        opts = TS.SLAMOptions(odom="gradicp", numiters=3, dsratio=2, fusion=True, **gate)
+        _, poses = TS.slam_sequence(torch.from_numpy(colors), d, torch.from_numpy(K), None, opts, cap)
+        _pose_loss(poses).backward()
+        grads.append(d.grad)
+    scale = float(grads[0].abs().max())
+    assert scale > 0
+    assert float((grads[1] - grads[0]).abs().max()) <= 1e-6 * scale
 
 
 @pytest.mark.parametrize("kept", ["some kept", "none kept"])

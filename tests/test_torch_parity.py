@@ -2,7 +2,7 @@
 tests/slam/test_reference_parity.py, with the same tolerances.
 
 PointFusion on the msrd golden clip (B=2, L=10, 120x160, the clip cycled as
-there), gt and gradicp odometry, on the CPU. The known divergence is the
+there), gt, gradicp and icp odometry, on the CPU. The known divergence is the
 same as the JAX package's: the port gives degenerate pixels the exact zero
 normal where the reference normalizes cross-product noise, which shifts
 append counts by a few percent without moving the trajectory.
@@ -88,3 +88,10 @@ def test_gradicp_trajectory_matches_reference():
     assert np.abs(p - g["poses"]).max() < 2e-3
     _check_map(m, g, med_tol=2e-4, p99_tol=1e-2)
 
+
+
+def test_icp_trajectory_matches_reference():
+    m, p = _run("icp", with_poses=False)
+    g = _golden("icp")
+    assert np.abs(p - g["poses"]).max() < 2e-3
+    _check_map(m, g, med_tol=2e-4, p99_tol=1e-2)

@@ -100,8 +100,7 @@ def test_icpslam_aggregate_and_options(clip):
     assert np.isfinite(poses.numpy()).all()
     valid = (clip["depths"][:1, :2, ..., 0] > 0).sum()
     assert pcs.num_points_per_pointcloud.tolist() == [valid]
-    with pytest.raises(NotImplementedError):
-        PointFusion(block_size=256, device="cpu")
+    assert PointFusion(block_size=256, device="cpu").opts.block_size == 256  # ported
     with pytest.raises(NotImplementedError):
         PointFusion(loop_closure="pose", device="cpu")
     with pytest.raises(ValueError):

@@ -175,3 +175,105 @@ def test_pointclouds_accessors():
     np.testing.assert_array_equal(both.points_list[0][4:].numpy(), pts[0])
     assert t[1].num_points_per_pointcloud.tolist() == [7]
     assert t.cpu().device.type == "cpu"
+
+
+def _clouds(seed, counts=(5, 8, 3)):
+    """The same ragged clouds with normals, colors and features in both
+    packages."""
+    rng = np.random.default_rng(seed)
+    parts = [[rng.standard_normal((n, c)).astype(np.float32) for n in counts] for c in (3, 3, 3, 1)]
+    t = Pointclouds(*[[_t(x) for x in p] for p in parts])
+    j = JPointclouds(*[[jnp.asarray(x) for x in p] for p in parts])
+    return t, j
+
+
+def _se3(seed):
+    from gradslam_tpu_torch.geometry import se3_exp
+
+    rng = np.random.default_rng(seed)
+    return se3_exp(_t(rng.standard_normal(6).astype(np.float32) * 0.3)).numpy()
+
+
+_K = np.array([[100.0, 0, 50, 0], [0, 100.0, 40, 0], [0, 0, 1, 0], [0, 0, 0, 1]], np.float32)
+POINTCLOUD_OPS = {
+    "offset and scale": lambda pc, x: (pc + 1.0) * 2.0,
+    "offset by a vector": lambda pc, x: pc.offset(x(np.array([0.5, -1.0, 2.0], np.float32))),
+    "sub": lambda pc, x: pc - 0.25,
+    "div": lambda pc, x: pc / 2.0,
+    "matmul se3": lambda pc, x: pc @ x(_se3(0)),
+    "matmul so3": lambda pc, x: pc @ x(_se3(1)[:3, :3]),
+    "rotate": lambda pc, x: pc.rotate(x(_se3(2)[:3, :3])),
+    "transform": lambda pc, x: pc.transform(x(_se3(3))),
+    "pinhole_projection": lambda pc, x: (pc + x(np.array([0, 0, 6.0], np.float32))).pinhole_projection(x(_K)),
+    "in-place aliases": lambda pc, x: pc.rotate_(x(_se3(4)[:3, :3])).offset_(1.0).scale_(3.0),
+    "astype": lambda pc, x: pc.astype(torch.float16 if x is _t else jnp.float16),
+}
+
+
+@pytest.mark.parametrize("op", list(POINTCLOUD_OPS))
+def test_pointclouds_ops_match_jax(op):
+    t, j = _clouds(7)
+    ot, oj = POINTCLOUD_OPS[op](t, _t), POINTCLOUD_OPS[op](j, jnp.asarray)
+    np.testing.assert_array_equal(ot.num_points_per_pointcloud.numpy(), np.asarray(oj.num_points_per_pointcloud))
+    for name in ("points_padded", "normals_padded", "colors_padded", "features_padded"):
+        a, b = getattr(ot, name), np.asarray(getattr(oj, name))
+        assert str(a.dtype).split(".")[-1] == str(b.dtype), (name, a.dtype, b.dtype)
+        np.testing.assert_allclose(a.numpy(), b, rtol=1e-5, atol=1e-5)
+    assert (ot.points_padded[~ot.nonpad_mask] == 0).all()  # padding stays zero
+
+
+def test_pointclouds_setters_equisized_and_grad():
+    t, _ = _clouds(8)
+    assert not t.equisized and Pointclouds([_t(np.ones((3, 3), np.float32))] * 2).equisized
+    new = t.points_padded * 2.0
+    t.points_padded = new
+    assert t.points_padded is not None and torch.equal(t.points_padded, new)
+    with pytest.raises(ValueError):
+        t.normals_padded = torch.ones_like(new)  # padding not zero
+    with pytest.raises(ValueError):
+        t.colors_padded = new[:, :2]  # wrong shape
+    with pytest.raises(ValueError):
+        t.points_padded = torch.zeros(new.shape[:2] + (2,))  # wrong channel count
+    t.features_padded = torch.zeros(new.shape[:2] + (4,))  # any feature width
+    assert t.num_features == 4
+    p = torch.ones((1, 3, 3), requires_grad=True)
+    ((Pointclouds(points=p) * 2.0) + 1.0).points_padded.sum().backward()
+    assert torch.equal(p.grad, torch.full_like(p, 2.0))
+    assert not Pointclouds(points=p).detach().points_padded.requires_grad
+
+
+def test_rgbdimages_members_match_jax(clip):
+    args = [clip[n][:, :2] for n in ("colors", "depths")] + [clip["intrinsics"], clip["poses"][:, :2]]
+    t, j = RGBDImages(*args, device="cpu"), JR.RGBDImages(*args)
+    assert t.cdim == j.cdim == 4
+    np.testing.assert_array_equal(t.pixel_pos.numpy(), np.asarray(j.pixel_pos))
+    assert t.to_channels_first_() is t and j.to_channels_first_() is j
+    assert t.cdim == j.cdim == 2
+    np.testing.assert_array_equal(t.pixel_pos.numpy(), np.asarray(j.pixel_pos))
+    np.testing.assert_array_equal(t.rgb_image.numpy(), np.asarray(j.rgb_image))
+    for make in (lambda r: r.clone(), lambda r: r.detach(), lambda r: r.astype(torch.float64)):
+        out = make(t)
+        assert out.channels_first and out.rgb_image.shape == t.rgb_image.shape
+        np.testing.assert_allclose(out.global_vertex_map.numpy(), np.asarray(j.global_vertex_map),
+                                   rtol=2e-6, atol=2e-6)
+    assert t.astype(torch.float64).poses.dtype == torch.float64
+    assert t.to_channels_last_() is t and t.cdim == 4
+    d = torch.from_numpy(args[1]).requires_grad_(True)
+    r = RGBDImages(_t(args[0]), d, _t(args[2]), device="cpu")
+    assert r.vertex_map.requires_grad and not r.detach().vertex_map.requires_grad
+
+
+@pytest.mark.parametrize("global_coordinates", [True, False])
+@pytest.mark.parametrize("filter_missing_depths", [True, False])
+def test_pointclouds_from_rgbdimages_matches_jax(clip, global_coordinates, filter_missing_depths):
+    from gradslam_tpu.structures.utils import pointclouds_from_rgbdimages as jfrom
+    from gradslam_tpu_torch.structures import pointclouds_from_rgbdimages as tfrom
+
+    args = [clip[n][:, 1:2] for n in ("colors", "depths")] + [clip["intrinsics"], clip["poses"][:, 1:2]]
+    kw = dict(global_coordinates=global_coordinates, filter_missing_depths=filter_missing_depths)
+    t, j = tfrom(RGBDImages(*args, device="cpu"), **kw), jfrom(JR.RGBDImages(*args), **kw)
+    np.testing.assert_array_equal(t.num_points_per_pointcloud.numpy(), np.asarray(j.num_points_per_pointcloud))
+    for name in ("points_padded", "normals_padded", "colors_padded"):
+        np.testing.assert_allclose(getattr(t, name).numpy(), np.asarray(getattr(j, name)), rtol=2e-6, atol=2e-6)
+    with pytest.raises(ValueError):
+        tfrom(RGBDImages(*[clip[n] for n in ("colors", "depths", "intrinsics")], device="cpu"))

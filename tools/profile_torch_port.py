@@ -7,11 +7,16 @@ the golden clip (B=2, L=10, 120x160) and at the ScanNet geometry (B=2,
 L=16, 240x320, the golden clip upsampled 2x as chip_smoke.py does), and
 ``PointFusion(assoc='projective', ...)`` at both (window 2*H*W on the
 golden clip; window 3*H*W and active buffer 1.5*H*W at the ScanNet
-geometry, as chip_smoke.py runs them), each once to warm up, ``--reps`` times timed (the median is reported) and
-once under ``torch.profiler``. For each it reports the wall time per frame
-step without and with the profiler, the device time summed over kernels,
-the device's busy and idle share of the wall time, kernel launches per
-frame step, and the kernels that take the most device time. With
+geometry, as chip_smoke.py runs them), and ``PointFusion(block_size=4096)``
+at the ScanNet geometry (block gating: association over the visible blocks
+only), each once to warm up, ``--reps`` times timed (the median is
+reported) and once under ``torch.profiler``. For each it reports the wall
+time per frame step without and with the profiler, the device time summed
+over kernels, the device's busy and idle share of the wall time, kernel
+launches per frame step, the share of device time in scan kernels (the
+cumsums of ``ops.masking.compact_masked`` and of the appends), and the
+kernels that take the most device time. ``--only`` keeps the points whose
+name contains one of its comma-separated words. With
 ``--backward`` it also profiles the backward of a training step, the
 gradient of ``slam_loss`` (the depth-calibration loss through
 ``PointFusion()``'s run) on the golden clip and at the ScanNet geometry:
@@ -127,6 +132,9 @@ def _report(name, prof, wall, walls, batch_frames, top):
         us = sum(v[1] for v in hits)
         ours[label] = dict(launches=sum(v[0] for v in hits), ms=us / 1e3,
                            share_of_device=us / busy_us if busy_us else 0.0)
+    # the cumsums: CUDA scan kernels
+    scans = [v for k, v in by_name.items() if "scan" in k.lower()]
+    scan_us = sum(v[1] for v in scans)
     out = dict(
         point=name,
         frames=B * L,
@@ -143,6 +151,8 @@ def _report(name, prof, wall, walls, batch_frames, top):
         device_busy_share=covered / 1e6 / wall,
         device_idle_share=1.0 - covered / 1e6 / wall,
         port_kernels=ours,
+        scan_kernels=dict(launches=sum(v[0] for v in scans), ms=scan_us / 1e3,
+                          share_of_device=scan_us / busy_us if busy_us else 0.0),
         top_kernels=[
             dict(name=k[:120], launches=c, ms=us / 1e3, share_of_device=us / busy_us if busy_us else 0.0)
             for k, (c, us) in rows[:top]
@@ -157,6 +167,9 @@ def _report(name, prof, wall, walls, batch_frames, top):
     for label, r in ours.items():
         print(f"  port kernel {label}: {r['ms']:.4f} ms in {r['launches']} CUDA launches, "
               f"{r['share_of_device']:.4f} of device time")
+    r = out["scan_kernels"]
+    print(f"  scan kernels (cumsum): {r['ms']:.4f} ms in {r['launches']} launches, "
+          f"{r['share_of_device']:.4f} of device time")
     for r in out["top_kernels"]:
         print(f"  {r['ms']:10.4f} ms {r['launches']:6d}x {r['share_of_device']:.4f}  {r['name']}")
     return out
@@ -168,6 +181,7 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=1, help="unprofiled timed runs per point")
     ap.add_argument("--backward", action="store_true",
                     help="also profile the backward of a training step at both geometries")
+    ap.add_argument("--only", help="comma-separated words: profile only the points whose name has one")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_torch_port: no CUDA device", file=sys.stderr)
@@ -182,18 +196,19 @@ def main(argv=None) -> int:
     print(smi, flush=True)
     dev = torch.device("cuda", 0)
     res = {"card": smi, "torch": torch.__version__, "points": []}
-    colors, depths, K = chip_smoke._golden_clip(10)
-    res["points"].append(profile_point("golden B=2 L=10 120x160", colors, depths, K, dev, args.reps))
-    res["points"].append(profile_point(
-        "projective golden B=2 L=10 120x160", colors, depths, K, dev, args.reps,
-        assoc="projective", assoc_window=2 * 120 * 160,
-    ))
-    colors, depths, K = chip_smoke._scannet_clip(16)
-    res["points"].append(profile_point("scannet B=2 L=16 240x320", colors, depths, K, dev, args.reps))
-    res["points"].append(profile_point(
-        "projective scannet B=2 L=16 240x320", colors, depths, K, dev, args.reps,
-        assoc="projective", assoc_window=3 * 240 * 320, active_capacity=(3 * 240 * 320) // 2,
-    ))
+    words = args.only.split(",") if args.only else None
+    golden, scannet = chip_smoke._golden_clip(10), chip_smoke._scannet_clip(16)
+    HW, HW4 = 120 * 160, 240 * 320
+    for name, clip, options in (
+        ("golden B=2 L=10 120x160", golden, {}),
+        ("projective golden B=2 L=10 120x160", golden, dict(assoc="projective", assoc_window=2 * HW)),
+        ("scannet B=2 L=16 240x320", scannet, {}),
+        ("projective scannet B=2 L=16 240x320", scannet,
+         dict(assoc="projective", assoc_window=3 * HW4, active_capacity=(3 * HW4) // 2)),
+        ("gated scannet B=2 L=16 240x320 block 4096", scannet, dict(block_size=4096)),
+    ):
+        if words is None or any(w in name for w in words):
+            res["points"].append(profile_point(name, *clip, dev, args.reps, **options))
     if args.backward:
         for name, (colors, depths, K), L in (("golden B=2 L=10 120x160", chip_smoke._golden_clip(10), 10),
                                             ("scannet B=2 L=16 240x320", chip_smoke._scannet_clip(16), 16)):
