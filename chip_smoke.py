@@ -57,12 +57,32 @@ full-arena fusion) and ``PointFusion(assoc='projective', assoc_window=...)``
      whole 240x320 frame; ``update_map_fusion`` and
      ``find_correspondences`` over the golden clip's first three frames
      against the CPU, with every winner selection against the plain
-     version.
+     version;
+ 15. files to ATE at the sensor's size: 32 rendered 480x640 frames written
+     as a TUM tree (stdlib PNG writer), read by ``TUM(seqlen=16)`` and
+     ``DataLoader(batch_size=2, num_workers=4, to_device=card)`` (the
+     decode route printed), mapped by ``slam_sequence_managed`` (gradICP,
+     an arena of 1.25*H*W rows, watermark 0.9 read after every frame,
+     2 cm voxel merges), ATE below 5e-3 m; at least two compactions, each
+     reclaiming at least half the live rows, and the arena never above 95%
+     full; the voxel merge's cells on the card bit-equal to the CPU's at 2
+     and 1 cm; a checkpoint at a compacting boundary resumed from its file
+     bitwise equal to the uninterrupted run; the map as PLY; every
+     selection (the refresh's too) and a dozen KNN calls against the plain
+     version, timed;
+ 16. the managed run at the ScanNet geometry (L=32, an arena of 2*H*W
+     rows, 2 mm voxels) against the unmanaged run: translations within
+     5e-3 m, at least one compaction, its cells bit-equal to the CPU's,
+     the voxel merge's time;
+ 17. the gradient of the pose loss through ``slam_sequence_compacted``
+     (golden clip, L=6, 5 mm voxels, compaction every 2 frames) on the
+     card against the CPU.
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after: the KNN kernel 40 times per frame step on the KNN path and
 never on the projective one, the winner kernel once per fusion step on
-both, neither in a backward. Any failed check raises. The line before the
+both and once per compaction (the refresh's selection), neither in a
+backward. Any failed check raises. The line before the
 last is a JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": ...}``. Needs one card; exits non-zero without one.
 """
@@ -207,12 +227,43 @@ def _knn_bound(src, limit_sum, valid_sum):
     return 1e3 * max(bytes_s, ops_s), "bytes" if bytes_s > ops_s else "operations"
 
 
+CDIST_CHUNK_BYTES = 2**31  # the (B, chunk, T) distances of one cdist call
+
+
+def _library_knn(src, tgt, valid):
+    """``torch.cdist`` (masked, + min), in chunks of sources where the whole
+    (B, S, T) distance matrix would pass CDIST_CHUNK_BYTES (at the 480x640
+    main path's 2.9e9 pairs one call raises an invalid launch
+    configuration)."""
+    B, S, _ = src.shape
+    chunk = max(1, CDIST_CHUNK_BYTES // (B * tgt.shape[1] * 4))
+    out = [torch.cdist(src[:, s0 : s0 + chunk], tgt, compute_mode="donot_use_mm_for_euclid_dist")
+           .masked_fill_(~valid[:, None, :], torch.inf).min(-1) for s0 in range(0, S, chunk)]
+    return torch.cat([d for d, _ in out], 1), torch.cat([i for _, i in out], 1)
+
+
+def _time_knn_call(name, src, tgt, valid):
+    """Kernel, plain and ``torch.cdist`` (masked, + min; chunked over the
+    sources where it must be) times and the bound of one KNN call."""
+    from gradslam_tpu_torch.ops.knn import knn_kernel, knn_reference, prepare_targets
+
+    prep = prepare_targets(tgt, valid)
+    ms = _time_ms(lambda: knn_kernel(src, prep.packed, prep.limit), reps=50)
+    plain_ms = _time_ms(lambda: knn_reference(src, tgt, valid), reps=5, warmup=1)
+    B, S, _ = src.shape
+    chunks = -(-S // max(1, CDIST_CHUNK_BYTES // (B * tgt.shape[1] * 4)))
+    library_ms = _time_ms(lambda: _library_knn(src, tgt, valid), reps=2 if chunks > 1 else 10, warmup=1)
+    bound_ms, bound_by = _knn_bound(src, int(prep.limit.sum()), int(valid.sum()))
+    _log(f"knn timing {name} B={B} S={S} T={tgt.shape[1]} limit {prep.limit.tolist()}: kernel {ms:.6f} ms, plain "
+         f"{plain_ms:.6f} ms, cdist {library_ms:.6f} ms in {chunks} chunks, bound {bound_ms:.6f} ms ({bound_by}), "
+         f"tiles {knn_kernel.tiles(B, S, tgt.shape[1])}")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
 def knn_phase(dev):
     """Kernel vs plain version at the main path's shapes and layouts, on the
     main path's own inputs, and at edge cases; returns the kernel's JSON
     entry (without ``launches``)."""
-    from gradslam_tpu_torch.ops.knn import knn_kernel, knn_reference, prepare_targets
-
     gen = np.random.default_rng(0)
 
     def cloud(B, N):
@@ -270,22 +321,7 @@ def knn_phase(dev):
             errs.append(_knn_case(f"{name} main path, frame step {n + 1}", src, tgt, val)[2])
 
     # timing at the main path's shapes and layouts
-    timings = {}
-    for case, (src, tgt, val) in timed.items():
-        prep = prepare_targets(tgt, val)
-        ms = _time_ms(lambda: knn_kernel(src, prep.packed, prep.limit), reps=50)
-        plain_ms = _time_ms(lambda: knn_reference(src, tgt, val), reps=5, warmup=1)
-        library_ms = _time_ms(
-            lambda: torch.cdist(src, tgt, compute_mode="donot_use_mm_for_euclid_dist")
-            .masked_fill_(~val[:, None, :], torch.inf).min(-1),
-            reps=10,
-        )
-        bound_ms, bound_by = _knn_bound(src, int(prep.limit.sum()), int(val.sum()))
-        timings[case] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                             bound_ms=bound_ms, bound_by=bound_by)
-        _log(f"knn timing {case}: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, cdist "
-             f"{library_ms:.6f} ms, bound {bound_ms:.6f} ms ({bound_by}), tiles "
-             f"{knn_kernel.tiles(src.shape[0], src.shape[1], tgt.shape[1])}")
+    timings = {case: _time_knn_call(case, *args) for case, args in timed.items()}
     main = "scannet B=2 S=4800 T=19456 prefix 6229"
     entry = dict(
         name="knn",
@@ -579,12 +615,30 @@ def _winner_design_bytes(args, P):
     return 16 * B * N + 16 * n_in + 12 * B * P
 
 
+def _time_winner_call(name, args, P, sentinel, library=_library_winner):
+    """Kernel, plain and ``library`` (``scatter_reduce_``) times and the bound
+    of one selection. The bound counts the function's bytes: four int32
+    inputs read once, the int32 table written once; the design's own bytes
+    and its grid go to the log."""
+    from gradslam_tpu_torch.ops import pixel_winner_reference, winner_kernel
+
+    args = tuple(a.contiguous() for a in args)
+    B, N = args[0].shape
+    ms = _time_ms(lambda: winner_kernel(*args, P, sentinel), reps=100)
+    plain_ms = _time_ms(lambda: pixel_winner_reference(*args, P, sentinel), reps=20)
+    library_ms = _time_ms(lambda: library(*args, P, sentinel), reps=20)
+    bound_ms = 1e3 * (B * N * 4 * 4 + B * P * 4) / HBM_BYTES_PER_S
+    design_ms = 1e3 * _winner_design_bytes(args, P) / HBM_BYTES_PER_S
+    _log(f"winner timing {name} B={B} N={N} P={P}: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, scatter_reduce_ "
+         f"{library_ms:.6f} ms, bound {bound_ms:.6f} ms (bytes), design's bytes {design_ms:.6f} ms, "
+         f"{winner_kernel.grid(B, N, P, winner_kernel.max_blocks())} blocks")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by="bytes")
+
+
 def winner_phase(dev):
     """Kernel vs plain version at the diag's and the fusion paths' shapes,
     with crafted ties and edge cases; returns the kernel's JSON entry
     (without ``launches``)."""
-    from gradslam_tpu_torch.ops import pixel_winner_reference, winner_kernel
-
     gen = np.random.default_rng(0)
     rmw_args, HW, A = _rmw_inputs(dev)
     got = _winner_case("pallas_rmw contract (diag shapes)", rmw_args, HW, A)
@@ -636,22 +690,9 @@ def winner_phase(dev):
 
     timings = {}
     for name, (args, P, CAP) in timed.items():
-        B, N = args[0].shape
-        ms = _time_ms(lambda: winner_kernel(*args, P, CAP), reps=100)
-        plain_ms = _time_ms(lambda: pixel_winner_reference(*args, P, CAP), reps=20)
-        if name.startswith("pallas_rmw"):
-            library_ms = _time_ms(lambda: _library_rmw(args[0], args[1], args[3], P, CAP), reps=20)
-        else:
-            library_ms = _time_ms(lambda: _library_winner(*args, P, CAP), reps=20)
-        # the function's bytes: four int32 inputs read once, the int32 table
-        # written once; the design's own bytes and its grid go to the log
-        bound_ms = 1e3 * (B * N * 4 * 4 + B * P * 4) / HBM_BYTES_PER_S
-        timings[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                             bound_by="bytes")
-        design_ms = 1e3 * _winner_design_bytes(args, P) / HBM_BYTES_PER_S
-        _log(f"winner timing {name} B={B} N={N} P={P}: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
-             f"scatter_reduce_ {library_ms:.6f} ms, bound {bound_ms:.6f} ms (bytes), design's bytes "
-             f"{design_ms:.6f} ms, {winner_kernel.grid(B, N, P, winner_kernel.max_blocks())} blocks")
+        library = (lambda p, kh, kl, sl, P, S: _library_rmw(p, kh, sl, P, S)) if name.startswith("pallas_rmw") \
+            else _library_winner
+        timings[name] = _time_winner_call(name, args, P, CAP, library)
     main = WINNER_SHAPES[1][0]
     entry = dict(
         name="pixel_winner",
@@ -1217,6 +1258,414 @@ def object_api_phase(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 15.-17. from files on disk to a managed map
+# ---------------------------------------------------------------------------
+
+E2E_HW = (480, 640)  # the TUM frame's own size: the loader's intrinsics need no scaling
+E2E_FRAMES = 32
+E2E_SEQLEN = 16
+E2E_SEGMENT = 1  # the watermark is read after every frame
+E2E_VOXEL = 0.02  # the package default: a 2 cm cell holds ~12 of the scene's 5.7 mm pixel footprints at 3 m
+SCANNET_VOXEL = 0.002  # the voxel of the JAX package's trajectory bound test (tests/slam/test_lifecycle.py)
+# Phase 17 compares two runs through two compactions, so one decision at a
+# threshold (a point's cell, a fusion gate) taken differently by the card
+# and the CPU's last-bit differences ends the comparison; at 5 mm, finer
+# than the golden clip's pixel footprint, no such decision flips, while at
+# 2 mm, 1 cm and 2 cm one does (tools/compaction_sensitivity.py)
+GRAD_VOXEL = 0.005
+VOXEL_CHECK_SIZES = (0.02, 0.01)  # the package's defaults: managed and compacted runs
+# Arenas in units of H*W, small enough that the 0.9 watermark is crossed:
+# fused, the 480x640 scene peaks at 1.57*H*W rows over 16 frames and the
+# cycled ScanNet-geometry clip at 2.11*H*W over 32, so arenas of 2*H*W and
+# 6*H*W would never compact (an H100 run of this script)
+E2E_CAPACITY_HW = 1.25
+SCANNET_CAPACITY_HW = 2.0
+E2E_MIN_RECLAIM = 0.5  # each compaction frees at least this share of the live rows
+E2E_MAX_FILL = 0.95  # the arena at its fullest, as a share of its capacity
+
+
+def _png_chunk(kind: bytes, data: bytes) -> bytes:
+    import struct
+    import zlib
+
+    return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", zlib.crc32(kind + data))
+
+
+def _write_png(path, img: np.ndarray) -> None:
+    """A PNG of an (H, W, 3) uint8 or (H, W) uint16 image, unfiltered rows,
+    with the standard library's zlib (the card's Python has no image
+    writer)."""
+    import struct
+    import zlib
+
+    H, W = img.shape[:2]
+    color, depth = (0, 16) if img.dtype == np.uint16 else (2, 8)
+    rows = np.ascontiguousarray(img.astype(">u2") if depth == 16 else img).view(np.uint8).reshape(H, -1)
+    raw = np.concatenate([np.zeros((H, 1), np.uint8), rows], axis=1).tobytes()
+    header = struct.pack(">IIBBBBB", W, H, depth, color, 0, 0, 0)
+    path.write_bytes(b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", header)
+                     + _png_chunk(b"IDAT", zlib.compress(raw, 1)) + _png_chunk(b"IEND", b""))
+
+
+def _render_e2e(dev, n, H, W):
+    """``tests/integration/test_real_format_e2e.py``'s scene at H x W: its
+    textured height field ray-cast (30 fixed-point steps, float64 on the
+    card) from its translating camera, with the TUM loader's intrinsics.
+    Returns (colors uint8 (n, H, W, 3), depth m float64 (n, H, W), poses
+    (n, 4, 4) float32)."""
+    f64 = dict(dtype=torch.float64, device=dev)
+    dx = ((torch.arange(W, **f64) - 319.5 * W / 640) / (525.0 * W / 640))[None, :].expand(H, W)
+    dy = ((torch.arange(H, **f64) - 239.5 * H / 480) / (525.0 * H / 480))[:, None].expand(H, W)
+    z = lambda x, y: 3.0 + 0.25 * torch.sin(1.7 * x + 0.5) * torch.cos(1.9 * y) + 0.15 * torch.sin(0.9 * y + 1.0)
+    colors, depths, poses = [], [], []
+    for k in range(n):
+        t = (0.03 * k, 0.015 * k, 0.01 * k)
+        s = torch.full((H, W), 3.0, **f64)
+        for _ in range(30):
+            s = z(t[0] + s * dx, t[1] + s * dy) - t[2]
+        x, y = t[0] + s * dx, t[1] + s * dy
+        tex = torch.stack([0.5 + 0.45 * torch.sin(3.0 * x), 0.5 + 0.45 * torch.cos(2.0 * y + 1.0),
+                           0.5 + 0.45 * torch.sin(1.3 * (x + y))], dim=-1)
+        colors.append((tex * 255).to(torch.uint8).cpu().numpy())
+        depths.append(s.cpu().numpy())
+        T = np.eye(4, dtype=np.float32)
+        T[:3, 3] = t
+        poses.append(T)
+    return np.stack(colors), np.stack(depths), np.stack(poses)
+
+
+def _write_tum_tree(seq, dev, n, H, W):
+    """Writes the rendered scene as a TUM sequence directory: 8-bit color
+    (with +-1 LSB of noise, so the decode costs what a camera frame's
+    does), 16-bit depth at x5000, rgb.txt / depth.txt / groundtruth.txt."""
+    colors, depths, poses = _render_e2e(dev, n, H, W)
+    rng = np.random.default_rng(7)
+    (seq / "rgb").mkdir(parents=True)
+    (seq / "depth").mkdir()
+    jobs, lines = [], {"rgb": [], "depth": [], "groundtruth": []}
+    for i in range(n):
+        t = f"{100.0 + i * 0.033:.6f}"
+        noisy = np.clip(colors[i].astype(np.int16) + rng.integers(-1, 2, colors[i].shape), 0, 255).astype(np.uint8)
+        jobs += [(seq / "rgb" / f"{t}.png", noisy),
+                 (seq / "depth" / f"{t}.png", np.round(depths[i] * 5000.0).astype(np.uint16))]
+        lines["rgb"].append(f"{t} rgb/{t}.png")
+        lines["depth"].append(f"{t} depth/{t}.png")
+        tx, ty, tz = poses[i][:3, 3]
+        lines["groundtruth"].append(f"{t} {tx:.6f} {ty:.6f} {tz:.6f} 0 0 0 1")
+    with ThreadPoolExecutor(8) as ex:
+        list(ex.map(lambda job: _write_png(*job), jobs))
+    for name, rows in lines.items():
+        (seq / f"{name}.txt").write_text(f"# {name}\n" + "\n".join(rows))
+
+
+class _Recorder:
+    """Replaces ``pixel_winner`` in the modules that call it, ``knn`` in the
+    odometry and ``compact_slam_state`` in the lifecycle by wrappers that
+    keep each selection's inputs and output, every ``knn_every``-th KNN
+    call's, and each compaction's frame index, device time, input arena
+    and live rows after it."""
+
+    def __init__(self, knn_every=50):
+        from gradslam_tpu_torch.odometry import icputils
+        from gradslam_tpu_torch.slam import fusionutils, lifecycle
+
+        self.winners, self.knns, self.compactions = [], [], []
+        self.n_knn, self.n_fusion = 0, 0
+        clone = lambda xs: tuple(x.detach().clone() if torch.is_tensor(x) else x for x in xs)
+
+        def winner(module):
+            real = module.pixel_winner
+
+            def wrapped(*args):
+                out = real(*args)
+                self.winners.append((module.__name__.rsplit(".", 1)[-1], clone(args), out.clone()))
+                self.n_fusion += module is fusionutils
+                return out
+            return real, wrapped
+
+        def knn(*args):
+            out = real_knn(*args)
+            if self.n_knn % knn_every == 0:
+                src, tgt = args[:2]
+                self.knns.append((src.detach().clone(), tgt.tgt.clone(), tgt.valid.clone(), clone(out)))
+            self.n_knn += 1
+            return out
+
+        def compact(state, *args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real_compact(state, *args, **kwargs)
+            torch.cuda.synchronize()
+            self.compactions.append((self.n_fusion, 1e3 * (time.perf_counter() - t0), state.map_state,
+                                     out.map_state.num_points))
+            return out
+
+        real_knn, real_compact = icputils.knn, lifecycle.compact_slam_state
+        self._restore = [(icputils, "knn", real_knn), (lifecycle, "compact_slam_state", real_compact)]
+        for module in (fusionutils, lifecycle):
+            real, wrapped = winner(module)
+            self._restore.append((module, "pixel_winner", real))
+            module.pixel_winner = wrapped
+        icputils.knn, lifecycle.compact_slam_state = knn, compact
+
+    def close(self):
+        for module, name, real in self._restore:
+            setattr(module, name, real)
+
+    def check(self, phase):
+        """Every selection and every kept KNN call against its plain version."""
+        from gradslam_tpu_torch.ops import knn_reference, pixel_winner_reference
+
+        for n, (where, args, out) in enumerate(self.winners):
+            _check(torch.equal(out, pixel_winner_reference(*args)),
+                   f"{phase}: selection {n} ({where}) differs from the plain version")
+        for n, (src, tgt, valid, (d, i)) in enumerate(self.knns):
+            dp, ip = knn_reference(src, tgt, valid)
+            _check(torch.equal(i, ip) and torch.equal(d, dp), f"{phase}: KNN call {n} differs from the plain version")
+        refresh = sum(w == "lifecycle" for w, _, _ in self.winners)
+        return (f"{len(self.winners)} selections ({refresh} of them the refresh's) and {len(self.knns)} of "
+                f"{self.n_knn} KNN calls bit-equal to the plain version")
+
+
+def _managed_run(dev, rgb, depth, K, opts, **kwargs):
+    """``slam_sequence_managed`` timed by the host clock around a
+    synchronized run, with the launch counts set to 0 just before it and
+    every selection, each compaction and some KNN calls recorded; returns
+    (map, poses, seconds, launches, recorder)."""
+    from gradslam_tpu_torch.slam import slam_sequence_managed
+
+    rec = _Recorder()
+    try:
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        m, poses = slam_sequence_managed(rgb, depth, K, None, opts, **kwargs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _launches()
+    finally:
+        rec.close()
+    return m, poses, seconds, launches, rec
+
+
+def _check_voxel_cells(phase, m, sizes=VOXEL_CHECK_SIZES):
+    """The voxel merge of the arena ``m`` on the card against the CPU at
+    each voxel size: the cell order and boundaries (the integer structure)
+    bit-equal, the merged rows within 1e-6. Logs how many points' cells a
+    division by a host scalar (a multiply by its float32 reciprocal on the
+    card) would move."""
+    from gradslam_tpu_torch.ops import voxel
+    from gradslam_tpu_torch.structures import map_mask
+
+    live = map_mask(m)
+    pts = m.data[..., 0:3]
+    origin = torch.zeros(3, dtype=pts.dtype, device=pts.device)
+    moved = {}
+    for size in sizes:
+        card = voxel._sort_by_voxel(pts, live, size, origin)
+        cpu = voxel._sort_by_voxel(pts.cpu(), live.cpu(), size, origin.cpu())
+        _check(all(torch.equal(a.cpu(), b) for a, b in zip(card, cpu)),
+               f"{phase}: the voxel cells at {size} differ between the card and the CPU")
+        rows, out_live = voxel.voxel_merge_rows(m.data, live, size)
+        rows_cpu, out_live_cpu = voxel.voxel_merge_rows(m.data.cpu(), live.cpu(), size)
+        err = float((rows.cpu() - rows_cpu).abs().max())
+        _check(torch.equal(out_live.cpu(), out_live_cpu) and err <= 1e-6,
+               f"{phase}: voxel merge at {size} card vs cpu, max |rows - cpu| {err}")
+        by_scalar = torch.floor(pts / size) != torch.floor(pts / torch.full((), size, device=pts.device))
+        moved[size] = (int((by_scalar.any(-1) & live).sum()), int(out_live.sum()), err)
+    return (f"voxel cells card vs cpu at {list(sizes)} bit-equal over {int(live.sum())} live rows (merged rows max "
+            f"|card - cpu|, a host-scalar divisor's moved points, cells: "
+            f"{ {k: (v[2], v[0], v[1]) for k, v in moved.items()} })")
+
+
+def _ply_vertices(path) -> int:
+    """The vertex count in a binary PLY file's header, checked against the
+    file's size (27 bytes a vertex: position, normal, color)."""
+    blob = path.read_bytes()
+    head = blob[: blob.index(b"end_header\n") + len(b"end_header\n")]
+    n = int(next(l for l in head.decode().splitlines() if l.startswith("element vertex")).split()[-1])
+    _check(len(blob) - len(head) == 27 * n, f"ply: {len(blob) - len(head)} bytes for {n} vertices")
+    return n
+
+
+def files_phase(dev, capacity_hw=E2E_CAPACITY_HW, voxel_size=E2E_VOXEL, segment_len=E2E_SEGMENT):
+    """Phase 15: a rendered 480x640 sequence written as a TUM tree, read
+    back by ``TUM`` and ``DataLoader(to_device=card)``, mapped by
+    ``slam_sequence_managed`` in an arena of 1.25*H*W rows, ATE against the
+    files' ground truth, the rows each compaction reclaims and the headroom; a checkpoint at a compacting boundary resumed from
+    its file, bitwise equal to the uninterrupted run; the map as PLY.
+    Returns (launches, {kernel: {case: timing}})."""
+    import tempfile
+
+    from gradslam_tpu_torch import PointFusion
+    from gradslam_tpu_torch.datasets import TUM, DataLoader
+    from gradslam_tpu_torch.metrics import ate_rmse
+    from gradslam_tpu_torch.slam import slam_sequence_managed
+    from gradslam_tpu_torch.structures import map_to_pointclouds
+    from gradslam_tpu_torch.utils import load_slam_state, save_slam_state
+    from gradslam_tpu_torch.viz import pointclouds_to_ply
+
+    H, W = E2E_HW
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        _write_tum_tree(root / "rgbd_dataset_render", dev, E2E_FRAMES, H, W)
+        write_s = time.perf_counter() - t0
+        ds = TUM(str(root), seqlen=E2E_SEQLEN, height=H, width=W)
+        _check(len(ds) == E2E_FRAMES // E2E_SEQLEN, f"files: {len(ds)} sequences")
+        t0 = time.perf_counter()
+        batches = list(DataLoader(ds, batch_size=2, num_workers=4, to_device=dev))
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        _check(len(batches) == 1, f"files: {len(batches)} batches")
+        colors, depths, K, gt, _, names, _ = batches[0]
+        B, L = colors.shape[:2]
+        _check(tuple(colors.shape) == (2, E2E_SEQLEN, H, W, 3) and colors.device == dev, "files: color batch")
+
+        opts = PointFusion(device=dev).opts
+        kw = dict(capacity=int(capacity_hw * H * W), watermark=0.9, segment_len=segment_len, policy="voxel", voxel_size=voxel_size)
+        torch.cuda.reset_peak_memory_stats()
+        m, poses, seconds, launches, rec = _managed_run(dev, colors, depths, K, opts, **kw)
+        peak = torch.cuda.max_memory_allocated()
+        ate = ate_rmse(poses, gt)
+        n_comp = len(rec.compactions)
+        checked = rec.check("files")
+        cap = kw["capacity"]
+        before = [c[2].num_points for c in rec.compactions]
+        reclaimed = [(b - c[3]).tolist() for b, c in zip(before, rec.compactions)]
+        share = min([float(((b - c[3]) / b).min()) for b, c in zip(before, rec.compactions)], default=0.0)
+        fullest = max([int(b.max()) for b in before] + [int(m.num_points.max())])
+        _log(f"files tum B={B} L={L} {H}x{W}: written in {write_s:.3f} s, decoded ({ds.decode_route}) at "
+             f"{E2E_FRAMES / decode_s:.3f} frames/s; managed CAP={cap} segment {segment_len} voxel "
+             f"{voxel_size}: {B * L / seconds:.3f} frames/s ({seconds:.3f} s), {n_comp} compactions at frames "
+             f"{[c[0] for c in rec.compactions]} taking {[round(c[1], 3) for c in rec.compactions]} ms (live "
+             f"{[b.tolist() for b in before]} before, {[c[3].tolist() for c in rec.compactions]} after, reclaimed "
+             f"{reclaimed}, least share {share:.4f}), num_points {m.num_points.tolist()}, headroom at the end "
+             f"{(cap - m.num_points).tolist()}, fullest {fullest} ({fullest / cap:.4f} of CAP), ATE {ate.tolist()} m, "
+             f"peak memory {peak} bytes, launches {launches}; {checked}")
+        _check(bool((ate < 5e-3).all()), f"files: ATE {ate.tolist()}")
+        _check(n_comp >= 2, f"files: {n_comp} compactions")
+        _check(share >= E2E_MIN_RECLAIM, f"files: a compaction reclaimed only {share:.4f} of the live rows")
+        _check(fullest <= E2E_MAX_FILL * cap, f"files: the arena reached {fullest} of {cap} rows")
+        _log(f"files: {_check_voxel_cells('files', rec.compactions[0][2])}")
+        _check_launches("files", launches, {"knn": (L - 1) * 40, "winner": L + n_comp})
+
+        # the last compacting boundary: interrupt there, save, load, resume
+        t_c = rec.compactions[-1][0]
+        m1, p1 = slam_sequence_managed(colors[:, :t_c], depths[:, :t_c], K, None, opts, **kw)
+        save_slam_state(str(root / "boundary.npz"), m1, p1[:, -1])
+        m_loaded, pose_loaded = load_slam_state(str(root / "boundary.npz"), device=dev)
+        m2, p2 = slam_sequence_managed(colors[:, t_c:], depths[:, t_c:], K, None, opts,
+                                       resume_from=(m_loaded, pose_loaded), **kw)
+        same = (torch.equal(m2.data, m.data), torch.equal(m2.num_points, m.num_points), torch.equal(p2, poses[:, t_c:]))
+        ply = root / "map.ply"
+        pointclouds_to_ply(map_to_pointclouds(m), str(ply), 0)
+        n_ply = _ply_vertices(ply)
+        _log(f"files resume at frame {t_c} from {(root / 'boundary.npz').stat().st_size} bytes: map, counts, poses "
+             f"bitwise equal to the uninterrupted run {same}; PLY of entry 0: {n_ply} vertices, "
+             f"{ply.stat().st_size} bytes")
+        _check(all(same), f"files: the resumed run differs from the uninterrupted one {same}")
+        _check(n_ply == int(m.num_points[0]), f"files: PLY {n_ply} vertices, map {int(m.num_points[0])}")
+
+        src, tgt, valid, _ = rec.knns[len(rec.knns) // 2]
+        refresh = next(args for where, args, _ in rec.winners if where == "lifecycle")
+        timings = {
+            "knn": {f"files tum {H}x{W} main path": _time_knn_call("files tum main path", src, tgt, valid)},
+            "winner": {f"refresh at CAP={capacity_hw}*H*W {H}x{W}": _time_winner_call("refresh", refresh[:4], *refresh[4:])},
+        }
+    return launches, timings
+
+
+def managed_scannet_phase(dev, capacity_hw=SCANNET_CAPACITY_HW, voxel_size=SCANNET_VOXEL):
+    """Phase 16: phase 4's 240x320 data cycled to L=32, managed in an arena
+    of 2*H*W rows against the unmanaged run at L*H*W: translations within
+    5e-3 m (the JAX package's bound, tests/slam/test_lifecycle.py), at least
+    one compaction, every selection bit-equal; the voxel merge's time at
+    this capacity. Returns the managed run's launches."""
+    from gradslam_tpu_torch import PointFusion
+    from gradslam_tpu_torch.slam import slam_sequence
+    from gradslam_tpu_torch.structures import voxel_compact_map
+
+    colors, depths, K = _scannet_clip(32)
+    B, L, H, W = colors.shape[:4]
+    rgb, depth, Kt = (torch.from_numpy(x).to(dev) for x in (colors, depths, K))
+    opts = PointFusion(device=dev).opts
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m_ref, p_ref = slam_sequence(rgb, depth, Kt, None, opts, L * H * W)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    cap = int(capacity_hw * H * W)
+    m, poses, seconds, launches, rec = _managed_run(dev, rgb, depth, Kt, opts, capacity=cap, voxel_size=voxel_size)
+    terr = float(torch.linalg.norm(poses[..., :3, 3] - p_ref[..., :3, 3], dim=-1).max())
+    checked = rec.check("managed scannet")
+    n_comp = len(rec.compactions)
+    merge_ms, cells = None, None
+    if n_comp:
+        arena = rec.compactions[0][2]
+        merge_ms = _time_ms(lambda: voxel_compact_map(arena, voxel_size), reps=5, warmup=1)
+        cells = _check_voxel_cells("managed scannet", arena, (voxel_size,))
+    _log(f"managed scannet B={B} L={L} {H}x{W} CAP={cap} voxel {voxel_size}: {B * L / seconds:.3f} frames/s "
+         f"({seconds:.3f} s; unmanaged at CAP={L * H * W}: {B * L / ref_s:.3f}), {n_comp} compactions at frames "
+         f"{[c[0] for c in rec.compactions]} ({[round(c[1], 3) for c in rec.compactions]} ms with the refresh, live "
+         f"{[c[2].num_points.tolist() for c in rec.compactions]} before, {[c[3].tolist() for c in rec.compactions]} "
+         f"after), num_points {m.num_points.tolist()} "
+         f"(unmanaged {m_ref.num_points.tolist()}), voxel merge at CAP={cap}: {merge_ms} ms, max translation "
+         f"from the unmanaged run {terr} m, launches {launches}; {checked}; {cells}")
+    _check(n_comp >= 1, "managed scannet: no compaction")
+    _check(terr < 5e-3, f"managed scannet: translations {terr} m from the unmanaged run")
+    _check_launches("managed scannet", launches, {"knn": (L - 1) * 40, "winner": L + n_comp})
+    return launches
+
+
+def compacted_grad_phase(dev, voxel_size=GRAD_VOXEL):
+    """Phase 17: the gradient of the pose loss with respect to the depth
+    maps through ``slam_sequence_compacted`` (golden clip, B=2, L=6,
+    ``PointFusion()`` defaults, an arena of 2*H*W rows merged at GRAD_VOXEL
+    every 2 frames) on the card against the CPU: within 1e-3 of the CPU's largest
+    value, nonzero on every frame after the first. Returns the card's
+    forward launches."""
+    from gradslam_tpu_torch import PointFusion
+    from gradslam_tpu_torch.slam import slam_sequence_compacted
+
+    colors, depths, K = _golden_clip(6)
+    B, L, H, W = colors.shape[:4]
+    opts = PointFusion(device=dev).opts
+    out = []
+    for d in (dev, torch.device("cpu")):
+        rgb, depth, Kt = (torch.from_numpy(x).to(d) for x in (colors, depths, K))
+        depth.requires_grad_(True)
+        sync = torch.cuda.synchronize if d.type == "cuda" else (lambda: None)
+        sync()
+        _reset_launches()
+        t0 = time.perf_counter()
+        _, poses, peak = slam_sequence_compacted(rgb, depth, Kt, None, opts, 2 * H * W, segment_len=2,
+                                                 voxel_size=voxel_size)
+        loss = (poses[..., :3, 3] ** 2).sum()
+        float(loss.detach())
+        t1 = time.perf_counter()
+        fwd = _launches()
+        _reset_launches()
+        loss.backward()
+        sync()
+        out.append((depth.grad, (t1 - t0, time.perf_counter() - t1), (fwd, _launches()), int(peak)))
+    (g, secs, (fwd, bwd), peak), (g_cpu, secs_cpu, _, peak_cpu) = out
+    err = _rel_err(g, g_cpu)
+    per_frame = g.abs().reshape(B, L, -1).sum(dim=(0, 2))
+    _log(f"compacted grad golden B={B} L={L} {H}x{W} CAP={2 * H * W} segment 2 voxel {voxel_size}: peak live {peak} "
+         f"(cpu {peak_cpu}), max |card - cpu| / max |cpu| {err}, per-frame |grad| {per_frame.tolist()}; card forward "
+         f"{secs[0]:.3f} s backward {secs[1]:.3f} s, cpu {secs_cpu[0]:.3f} s {secs_cpu[1]:.3f} s; launches forward "
+         f"{fwd} backward {bwd}")
+    _check(bool(torch.isfinite(g).all()) and bool((per_frame[1:] > 0).all()), f"compacted grad: {per_frame.tolist()}")
+    _check(err <= 1e-3, f"compacted grad: card vs cpu {err}")
+    first = (L - 1) % 2 or min(2, L - 1)  # the frames before the first boundary
+    n_comp = (L - 1 - first) // 2
+    _check_launches("compacted grad forward", fwd, {"knn": (L - 1) * 40, "winner": L + n_comp})
+    _check_launches("compacted grad backward", bwd, {"knn": 0, "winner": 0})
+    return fwd
+
+
 def _build_kernels():
     """Builds every kernel's source at once (one nvcc each) and loads them."""
     kernels = _kernels()
@@ -1266,6 +1715,11 @@ def main() -> int:
         dev, "projective scannet", assoc="projective", assoc_window=3 * H * W, active_capacity=(3 * H * W) // 2
     )
     by_path["object api"] = object_api_phase(dev)
+    by_path["files tum 480x640"], timings = files_phase(dev)
+    for name, t in timings.items():
+        entries[name]["other_shapes"].update(t)
+    by_path["managed scannet"] = managed_scannet_phase(dev)
+    by_path["compacted grad golden"] = compacted_grad_phase(dev)
     for name, entry in entries.items():
         # launches: the ScanNet geometry's run of the path each kernel is
         # timed for; every path's count beside it

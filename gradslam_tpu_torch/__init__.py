@@ -10,13 +10,15 @@ in CUDA (``csrc/``). Entry points run on ``"cuda"`` unless given
     >>> pointclouds, recovered_poses = PointFusion()(rgbdimages)
 """
 
-from . import geometry, metrics, odometry, ops, parallel, slam, structures
+from . import config, datasets, geometry, metrics, odometry, ops, parallel, slam, structures, utils, viz
 from .slam import ICPSLAM, PointFusion
 from .structures import MapState, Pointclouds, RGBDImages, init_map
 
 __version__ = "0.1.0"
 
 __all__ = [
+    "config",
+    "datasets",
     "geometry",
     "metrics",
     "odometry",
@@ -24,6 +26,8 @@ __all__ = [
     "parallel",
     "slam",
     "structures",
+    "utils",
+    "viz",
     "ICPSLAM",
     "PointFusion",
     "Pointclouds",

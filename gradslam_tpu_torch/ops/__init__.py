@@ -1,5 +1,6 @@
 from .knn import KnnTargets, knn, knn_kernel, knn_reference, prepare_targets
 from .masking import compact_masked
+from .voxel import voxel_merge, voxel_merge_rows
 from .winner import (
     pixel_winner,
     pixel_winner_reference,
@@ -20,4 +21,6 @@ __all__ = [
     "winner_kernel",
     "winner_keys",
     "winner_order_keys",
+    "voxel_merge",
+    "voxel_merge_rows",
 ]

@@ -58,6 +58,7 @@ __all__ = [
     "slam_sequence",
     "slam_state_from_numpy",
     "slam_state_to_numpy",
+    "candidate_capacity",
 ]
 
 
@@ -97,6 +98,23 @@ class SLAMOptions:
     odom_targets: str = "map"  # aggregate mapping: 'map' | 'recent'
     model_rows: str = "auto"  # projective targets: 'gather' | 'dense' | 'auto'
     window_merge: str = "dense"  # assoc_window merge: 'dense' | 'rows'
+
+
+def candidate_capacity(opts: SLAMOptions, H: int, W: int,
+                       capacity: Optional[int] = None) -> Tuple[int, Optional[int]]:
+    """The fusion step's candidate carry: ``(width, window)``.
+
+    ``width`` is the candidate buffer's, ``active_capacity`` (default
+    ``2*H*W``). Given the arena's ``capacity``, ``window`` is the number of
+    prefix rows fusion associates against (``assoc_window``; None when it is
+    off, with block gating, or without fusion), and a window no larger than
+    the buffer is carried uncompacted, so ``width`` is then the window's.
+    """
+    A = opts.active_capacity or 2 * H * W
+    if capacity is None or not opts.fusion or opts.block_size is not None:
+        return A, None
+    win = _resolve_assoc_window(opts.assoc_window, capacity)
+    return (win if win is not None and win <= A else A), win
 
 
 def _frame_maps_local(depth, intrinsics):
@@ -258,7 +276,7 @@ def _map_update(map_state, pose, rgb, depth, intrinsics, opts: SLAMOptions,
         ret = fusion_update_compact(
             map_state, gv, gn, vm, rgb, valid, pose, intrinsics,
             opts.dist_th, opts.dot_th, opts.sigma,
-            opts.active_capacity or 2 * H * W,
+            candidate_capacity(opts, H, W)[0],
             opts.block_size, opts.visible_capacity,
             return_active=return_active,
             frame_labels=labels,
@@ -334,7 +352,7 @@ def slam_init_state(rgb, depth, intrinsics, opts: SLAMOptions, capacity: int, po
     map_state = init_map(B, capacity, dtype, device=dev)
     if pose0 is None:
         pose0 = torch.eye(4, dtype=dtype, device=dev).expand(B, 4, 4)
-    A = opts.active_capacity or 2 * H * W
+    A, _ = candidate_capacity(opts, H, W, capacity)
     app_start = map_state.num_points
     if opts.fusion:
         map_state, (slots, valid, model_img, model_rows) = _map_update(

@@ -19,6 +19,7 @@ from .maparena import (
     map_state_to_numpy,
     map_to_pointclouds,
     pack_rows,
+    voxel_compact_map,
 )
 from .structutils import list_to_padded, padded_to_list
 from .utils import pointclouds_from_rgbdimages
@@ -33,6 +34,7 @@ __all__ = [
     "append_rows_to_map",
     "append_to_map",
     "compact_map",
+    "voxel_compact_map",
     "map_to_pointclouds",
     "pointclouds_from_rgbdimages",
     "map_state_from_numpy",

@@ -23,6 +23,7 @@ __all__ = [
     "append_rows_to_map",
     "append_to_map",
     "compact_map",
+    "voxel_compact_map",
     "map_to_pointclouds",
     "map_state_from_numpy",
     "map_state_to_numpy",
@@ -168,6 +169,22 @@ def compact_map(state: MapState, min_ccount: float = 0.0, keep_recent: int = 0) 
     data = state.data.gather(1, take_idx.long()[..., None].expand(-1, -1, _CH))
     data = data * valid[..., None].to(data.dtype)
     return MapState(data=data, num_points=keep.sum(dim=1, dtype=torch.int32))
+
+
+def voxel_compact_map(state: MapState, voxel_size: float) -> MapState:
+    """Merges map points sharing a voxel cell, reclaiming arena slots.
+
+    The complementary overflow policy to :func:`compact_map`: instead of
+    evicting low-confidence points, near-duplicate points (same
+    ``voxel_size`` cell) collapse into one confidence-weighted point whose
+    ccount is the cell sum; no observation is discarded. Survivors are
+    compacted to the front, sorted by voxel cell (not by original order);
+    their label channels are zero.
+    """
+    from ..ops.voxel import voxel_merge_rows
+
+    merged, live = voxel_merge_rows(state.data, map_mask(state), voxel_size)
+    return MapState(data=merged, num_points=live.sum(dim=1, dtype=torch.int32))
 
 
 def map_to_pointclouds(state: MapState):

@@ -4,7 +4,7 @@ Only the padded form (plus per-cloud counts) lives on the device; the list
 view is a host-boundary convenience. Operators return new
 :class:`Pointclouds` (the reference's trailing-underscore names are aliases
 of them); the padded setters are the one in-place change. Plotting and
-open3d export are not ported yet.
+open3d export go through :mod:`gradslam_tpu_torch.viz`.
 """
 
 from __future__ import annotations
@@ -379,6 +379,17 @@ class Pointclouds:
 
     def cuda(self):
         return self.to("cuda")
+
+    # -- viz export ------------------------------------------------------
+    def open3d(self, index: int = 0):
+        from ..viz import pointclouds_open3d
+
+        return pointclouds_open3d(self, index)
+
+    def plotly(self, index: int = 0, **kwargs):
+        from ..viz import pointclouds_plotly
+
+        return pointclouds_plotly(self, index, **kwargs)
 
     def __repr__(self):
         return (

@@ -365,6 +365,11 @@ class RGBDImages:
     def cuda(self):
         return self.to("cuda")
 
+    def plotly(self, index: int = 0, **kwargs):
+        from ..viz import rgbd_plotly
+
+        return rgbd_plotly(self, index, **kwargs)
+
     def __repr__(self):
         return (
             f"RGBDImages(shape={self.shape}, has_poses={self.has_poses}, "

@@ -504,3 +504,125 @@ def test_gradicp_provider_knn_calls_are_bit_equal(cuda_device):
                 dp, ip = knn_reference(src, tgt.tgt, tgt.valid)
                 assert torch.equal(ik, ip) and torch.equal(dk, dp)
     assert float((out["cuda"] - out["cpu"]).abs().max()) < 1e-4
+
+
+def _lifecycle_clip(ds=2, L=10):
+    colors = np.load(DATA / "colors.npy").astype(np.float32)
+    depths = np.load(DATA / "depths.npy").astype(np.float32)
+    idx = [i % colors.shape[1] for i in range(L)]
+    K = np.load(DATA / "intrinsics.npy").astype(np.float32).copy()
+    K[:, :, :2] /= ds
+    return (np.ascontiguousarray(colors[:, idx, ::ds, ::ds]), np.ascontiguousarray(depths[:, idx, ::ds, ::ds]), K)
+
+
+def test_voxel_merge_is_deterministic_and_matches_the_cpu(cuda_device):
+    """No float atomics: two merges on the card are bitwise equal, and the
+    cell structure (counts, validity) is the CPU's."""
+    from gradslam_tpu_torch.ops import voxel_merge_rows
+
+    gen = np.random.default_rng(0)
+    rows = np.zeros((2, 200_000, 12), np.float32)
+    rows[..., 0:3] = gen.uniform(-1, 1, (2, 200_000, 3))
+    rows[..., 3:9] = gen.uniform(0, 1, (2, 200_000, 6))
+    rows[..., 9] = gen.uniform(0.1, 2, (2, 200_000))
+    live = gen.random((2, 200_000)) > 0.1
+    r, l = torch.from_numpy(rows), torch.from_numpy(live)
+    a, la = voxel_merge_rows(r.to(cuda_device), l.to(cuda_device), 2.0**-5)
+    b, lb = voxel_merge_rows(r.to(cuda_device), l.to(cuda_device), 2.0**-5)
+    c, lc = voxel_merge_rows(r, l, 2.0**-5)
+    assert torch.equal(a, b) and torch.equal(la, lb)
+    assert torch.equal(la.cpu(), lc)
+    assert float((a.cpu() - c).abs().max()) < 1e-5
+
+
+@pytest.mark.parametrize("size", [0.02, 0.01])
+def test_voxel_cells_match_the_cpu_at_the_package_sizes(cuda_device, size):
+    """At the package's voxel sizes (not powers of two) the card puts every
+    point in the CPU's cell, points one ulp from a cell face included: the
+    cell order and boundaries are bit-equal and the merged rows agree."""
+    from gradslam_tpu_torch.ops import voxel
+
+    gen = np.random.default_rng(1)
+    B, N = 2, 120_000
+    face = (gen.integers(-100, 100, (B, N // 2, 3)) * size).astype(np.float32)
+    face = np.nextafter(face, face + gen.integers(-1, 2, face.shape).astype(np.float32))
+    rows = np.zeros((B, N, 12), np.float32)
+    rows[..., 0:3] = np.concatenate([gen.uniform(-2, 2, (B, N // 2, 3)), face], axis=1)
+    rows[..., 3:9] = gen.uniform(0, 1, (B, N, 6))
+    rows[..., 9] = gen.uniform(0.1, 2, (B, N))
+    live = torch.from_numpy(gen.random((B, N)) > 0.1)
+    r = torch.from_numpy(rows)
+    origin = torch.zeros(3)
+    card = voxel._sort_by_voxel(r[..., 0:3].to(cuda_device), live.to(cuda_device), size, origin.to(cuda_device))
+    cpu = voxel._sort_by_voxel(r[..., 0:3], live, size, origin)
+    for a, b in zip(card, cpu):
+        assert torch.equal(a.cpu(), b)
+    a, la = voxel.voxel_merge_rows(r.to(cuda_device), live.to(cuda_device), size)
+    c, lc = voxel.voxel_merge_rows(r, live, size)
+    assert torch.equal(la.cpu(), lc)
+    assert float((a.cpu() - c).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("size", [0.02, 0.01])
+def test_managed_poses_match_the_cpu_at_the_package_voxels(cuda_device, size):
+    """A managed run compacting at every segment boundary at the package's
+    voxel sizes: the card's arena counts are the CPU's and its poses within
+    1e-4."""
+    from gradslam_tpu_torch.slam import SLAMOptions, slam_sequence_managed
+
+    c, d, K = _lifecycle_clip()
+    H, W = c.shape[2:4]
+    opts = SLAMOptions(odom="gradicp", numiters=8, fusion=True)
+    kw = dict(opts=opts, capacity=3 * H * W, watermark=0.1, segment_len=3, voxel_size=size)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        rgb, dep, Kt = (torch.from_numpy(x).to(dev) for x in (c, d, K))
+        out[dev.type] = slam_sequence_managed(rgb, dep, Kt, None, **kw)
+    (m, p), (m_cpu, p_cpu) = out["cuda"], out["cpu"]
+    assert torch.equal(m.num_points.cpu(), m_cpu.num_points)
+    assert float((p.cpu() - p_cpu).abs().max()) < 1e-4
+
+
+def test_managed_resume_on_the_card(cuda_device, tmp_path):
+    """The managed run on the card: its poses match the CPU's to 1e-4, and a
+    checkpoint resumed at a compacting boundary with ``assoc_window`` set
+    equals the uninterrupted run bit for bit."""
+    from gradslam_tpu_torch.slam import SLAMOptions, slam_sequence_managed
+    from gradslam_tpu_torch.utils import load_slam_state, save_slam_state
+
+    c, d, K = _lifecycle_clip()
+    H, W = c.shape[2:4]
+    opts = SLAMOptions(odom="gradicp", numiters=8, fusion=True, assoc_window=H * W)
+    kw = dict(opts=opts, capacity=3 * H * W, watermark=0.1, segment_len=3, voxel_size=2.0**-6)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        rgb, dep, Kt = (torch.from_numpy(x).to(dev) for x in (c, d, K))
+        out[dev.type] = slam_sequence_managed(rgb, dep, Kt, None, **kw)
+    (m, p), (_, p_cpu) = out["cuda"], out["cpu"]
+    assert float((p.cpu() - p_cpu).abs().max()) < 1e-4
+    rgb, dep, Kt = (torch.from_numpy(x).to(cuda_device) for x in (c, d, K))
+    m1, p1 = slam_sequence_managed(rgb[:, :4], dep[:, :4], Kt, None, **kw)
+    save_slam_state(str(tmp_path / "ck.npz"), m1, p1[:, -1])
+    m2, p2 = slam_sequence_managed(rgb[:, 4:], dep[:, 4:], Kt, None,
+                                   resume_from=load_slam_state(str(tmp_path / "ck.npz")), **kw)
+    assert torch.equal(m2.data, m.data) and torch.equal(m2.num_points, m.num_points)
+    assert torch.equal(p2, p[:, 4:])
+
+
+def test_dataloader_copies_to_the_card(cuda_device):
+    """``to_device`` on the card: pinned staging and a copy stream give the
+    host arrays' exact values on the consumer's stream."""
+    from gradslam_tpu_torch.datasets import DataLoader
+
+    class Frames:
+        def __len__(self):
+            return 6
+
+        def __getitem__(self, i):
+            return np.full((4, 48, 64, 3), i, np.float32), f"f{i}"
+
+    batches = list(DataLoader(Frames(), batch_size=2, num_workers=2, to_device="cuda"))
+    assert len(batches) == 3
+    for k, (x, names) in enumerate(batches):
+        assert x.is_cuda and names == [f"f{2 * k}", f"f{2 * k + 1}"]
+        assert torch.equal(x[:, 0, 0, 0, 0].cpu(), torch.tensor([2.0 * k, 2.0 * k + 1]))
