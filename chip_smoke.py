@@ -76,13 +76,34 @@ full-arena fusion) and ``PointFusion(assoc='projective', assoc_window=...)``
      the voxel merge's time;
  17. the gradient of the pose loss through ``slam_sequence_compacted``
      (golden clip, L=6, 5 mm voxels, compaction every 2 frames) on the
-     card against the CPU.
+     card against the CPU;
+ 18. ``ICPSLAM(loop_closure='pose')`` at the JAX loop benchmark's
+     configuration (100 rendered 96x128 frames, frame-to-frame gradICP):
+     card poses within 1e-4 m of the CPU's, end drift with closure below
+     half of that without, ATE lower, every closure KNN call bit-equal;
+ 19. the same loop rendered on the card at 480x640 through
+     ``ICPSLAM(loop_closure='both')`` with ``close_loops``' defaults (K=8,
+     7 yaw hypotheses: one KNN batch of 56 at S=T=19,200): accepted edges,
+     ATE and end drift with and without closure, 82 KNN launches in the
+     closure, a dozen of its calls bit-equal, the kernel timed at B=56 and
+     B=8 beside its bound, two closures bit-identical;
+ 20. closure in the managed run (golden clip, 60x80, segments of 3) on the
+     card against the CPU and against the unclosed run, every winner
+     selection (the refreshes after accepted closures too) bit-equal; and
+     phase 15's trajectory closed by ``close_loops_rgbd(detection='both')``
+     (KNN batches of 4 and 28 at S=T=19,200), ATE below 5e-3 m;
+ 21. ``ba_refine`` ('dense' and 'pcg') at ``tools/bench_ba.py``'s problems
+     and ``pose_graph_refine`` at L=256 on the card against the CPU, ms
+     per Gauss-Newton iteration, and the gradient of
+     ``examples/train_loopclosure_ate.py``'s loss on the card against the
+     CPU.
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after: the KNN kernel 40 times per frame step on the KNN path and
-never on the projective one, the winner kernel once per fusion step on
-both and once per compaction (the refresh's selection), neither in a
-backward. Any failed check raises. The line before the
+never on the projective one, 2 per ICP iteration and 1 more per detector
+set in a loop closure, the winner kernel once per fusion step on both, once
+per compaction and once per accepted closure of the managed run (the
+refresh's selection), neither in a backward. Any failed check raises. The line before the
 last is a JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": ...}``. Needs one card; exits non-zero without one.
 """
@@ -228,6 +249,7 @@ def _knn_bound(src, limit_sum, valid_sum):
 
 
 CDIST_CHUNK_BYTES = 2**31  # the (B, chunk, T) distances of one cdist call
+KNN_ONCE_PAIRS = 4e9  # past this many pairs a call of the plain version or cdist takes seconds
 
 
 def _library_knn(src, tgt, valid):
@@ -249,10 +271,15 @@ def _time_knn_call(name, src, tgt, valid):
 
     prep = prepare_targets(tgt, valid)
     ms = _time_ms(lambda: knn_kernel(src, prep.packed, prep.limit), reps=50)
-    plain_ms = _time_ms(lambda: knn_reference(src, tgt, valid), reps=5, warmup=1)
     B, S, _ = src.shape
     chunks = -(-S // max(1, CDIST_CHUNK_BYTES // (B * tgt.shape[1] * 4)))
-    library_ms = _time_ms(lambda: _library_knn(src, tgt, valid), reps=2 if chunks > 1 else 10, warmup=1)
+    if B * S * tgt.shape[1] > KNN_ONCE_PAIRS:
+        # seconds a call: one synchronized call each, on the host clock
+        plain_ms = _wall_ms(lambda: knn_reference(src, tgt, valid), 1, warmup=False)
+        library_ms = _wall_ms(lambda: _library_knn(src, tgt, valid), 1, warmup=False)
+    else:
+        plain_ms = _time_ms(lambda: knn_reference(src, tgt, valid), reps=5, warmup=1)
+        library_ms = _time_ms(lambda: _library_knn(src, tgt, valid), reps=2 if chunks > 1 else 10, warmup=1)
     bound_ms, bound_by = _knn_bound(src, int(prep.limit.sum()), int(valid.sum()))
     _log(f"knn timing {name} B={B} S={S} T={tgt.shape[1]} limit {prep.limit.tolist()}: kernel {ms:.6f} ms, plain "
          f"{plain_ms:.6f} ms, cdist {library_ms:.6f} ms in {chunks} chunks, bound {bound_ms:.6f} ms ({bound_by}), "
@@ -1574,7 +1601,9 @@ def files_phase(dev, capacity_hw=E2E_CAPACITY_HW, voxel_size=E2E_VOXEL, segment_
             "knn": {f"files tum {H}x{W} main path": _time_knn_call("files tum main path", src, tgt, valid)},
             "winner": {f"refresh at CAP={capacity_hw}*H*W {H}x{W}": _time_winner_call("refresh", refresh[:4], *refresh[4:])},
         }
-    return launches, timings
+        closure_launches, closure_timing = files_closure(dev, colors, depths, K, gt, poses)
+        timings["knn"].update(closure_timing)
+    return launches, timings, closure_launches
 
 
 def managed_scannet_phase(dev, capacity_hw=SCANNET_CAPACITY_HW, voxel_size=SCANNET_VOXEL):
@@ -1666,6 +1695,526 @@ def compacted_grad_phase(dev, voxel_size=GRAD_VOXEL):
     return fwd
 
 
+# ---------------------------------------------------------------------------
+# 18.-21. loop closure and pose refinement
+# ---------------------------------------------------------------------------
+
+LOOP_FRAMES = 100
+# the JAX loop benchmark's closure gates (tests/integration/test_loop_benchmark.py)
+LOOP_GATES = dict(min_separation=25, max_distance=0.36)
+BA_OBS_PER_LM = 6  # tools/bench_ba.py
+# one iteration on the CPU takes ~15 s at 1e5 landmarks: the card is held to
+# the CPU at 1e4, and to its own other solver at every size
+BA_CPU_MAX_LANDMARKS = 10_000
+
+
+class _KnnTap:
+    """Replaces ``knn`` in the odometry and the loop-closure module, and
+    ``close_loops`` / ``close_loops_batched`` by wrappers that, while a
+    closure runs, count its KNN calls (and their shapes) and keep the inputs
+    and outputs of the calls ``keep(n, src)`` selects; and
+    ``pose_graph_refine`` by one that times it on the host clock."""
+
+    def __init__(self, keep=lambda n, src: True):
+        from gradslam_tpu_torch.odometry import icputils
+        from gradslam_tpu_torch.slam import loopclosure
+
+        self.calls, self.shapes, self.refine_ms, self.active = [], [], [], 0
+        real_knn, real_refine = icputils.knn, loopclosure.pose_graph_refine
+
+        def knn(src, tgt, tgt_valid=None):
+            out = real_knn(src, tgt, tgt_valid)
+            if self.active:
+                t, v = (tgt.tgt, tgt.valid) if hasattr(tgt, "packed") else (tgt, tgt_valid)
+                if keep(len(self.shapes), src):
+                    self.calls.append((len(self.shapes), src.detach().clone(), t.detach().clone(), v.clone(),
+                                       (out[0].clone(), out[1].clone())))
+                self.shapes.append((src.shape[0], src.shape[1], t.shape[1]))
+            return out
+
+        def closing(real):
+            def wrapped(*args, **kwargs):
+                self.active += 1
+                try:
+                    return real(*args, **kwargs)
+                finally:
+                    self.active -= 1
+            return wrapped
+
+        def refine(*args, **kwargs):
+            _sync(args[0].poses)
+            t0 = time.perf_counter()
+            out = real_refine(*args, **kwargs)
+            _sync(out)
+            self.refine_ms.append(1e3 * (time.perf_counter() - t0))
+            return out
+
+        patches = [(icputils, "knn", knn), (loopclosure, "knn", knn), (loopclosure, "pose_graph_refine", refine),
+                   (loopclosure, "close_loops", closing(loopclosure.close_loops)),
+                   (loopclosure, "close_loops_batched", closing(loopclosure.close_loops_batched))]
+        self._restore = [(m, name, getattr(m, name)) for m, name, _ in patches]
+        for m, name, fn in patches:
+            setattr(m, name, fn)
+
+    def close(self):
+        for m, name, real in self._restore:
+            setattr(m, name, real)
+
+    def check(self, phase):
+        """Every kept call against the plain version, bit for bit."""
+        from gradslam_tpu_torch.ops import knn_reference
+
+        for n, src, tgt, valid, (d, i) in self.calls:
+            dp, ip = knn_reference(src, tgt, valid)
+            _check(torch.equal(i, ip) and torch.equal(d, dp), f"{phase}: KNN call {n} differs from the plain version")
+        return f"{len(self.calls)} of {len(self.shapes)} closure KNN calls bit-equal to the plain version"
+
+
+def _wall_ms(fn, reps: int, warmup: bool = True) -> float:
+    """Host-clock ms per call of ``fn`` between synchronizations, after one
+    warm-up call: for functions that wait on the host themselves (the
+    sleep-queued device timing of ``_time_ms`` would count the sleep) and
+    for calls of seconds."""
+    if warmup:
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def _sync(x):
+    if torch.is_tensor(x) and x.is_cuda:
+        torch.cuda.synchronize(x.device)
+
+
+def _loop_metrics(p, gt):
+    """(ATE after alignment, end drift) of (1, L, 4, 4) poses in metres."""
+    from gradslam_tpu_torch.metrics import ate_rmse
+
+    p = torch.as_tensor(p).cpu()
+    gt = torch.as_tensor(gt).cpu()
+    return float(ate_rmse(p[0], gt[0])), float(torch.linalg.norm(p[0, -1, :3, 3] - gt[0, -1, :3, 3]))
+
+
+def _closure_launches(sets, icp_numiters):
+    """KNN launches of one closure: per detector set, 2 per ICP iteration
+    and 1 for the inlier scoring."""
+    return sets * (2 * icp_numiters + 1)
+
+
+def loop_benchmark_phase(dev):
+    """Phase 18: ``ICPSLAM(loop_closure='pose')`` at the JAX loop
+    benchmark's configuration (100 rendered 96x128 frames, radius 0.45,
+    depth noise 0.002, frame-to-frame gradICP with 10 iterations), on the
+    card and the CPU: poses within 1e-4 m, end drift with closure below half
+    of that without, ATE lower, every closure KNN call bit-equal. Returns
+    the card's launches (with closure)."""
+    from gradslam_tpu_torch import ICPSLAM, RGBDImages
+    from gradslam_tpu_torch.datasets.synth import render_loop_sequence
+
+    colors, depths, K, gt = render_loop_sequence(n_frames=LOOP_FRAMES, H=96, W=128, radius=0.45, depth_noise=0.002)
+    slam_kw = dict(odom="gradicp", numiters=10, odom_targets="recent")
+    lc = dict(loop_closure="pose", loop_closure_kwargs=dict(LOOP_GATES, icp_numiters=30))
+    runs = {}
+    for role, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        rgbd = RGBDImages(colors, depths, K, device=d)
+        plain = ICPSLAM(device=d, **slam_kw)(rgbd)[1] if role == "card" else None
+        tap = _KnnTap()
+        try:
+            _sync(plain)
+            _reset_launches()
+            t0 = time.perf_counter()
+            _, closed = ICPSLAM(device=d, **slam_kw, **lc)(rgbd)
+            _sync(closed)
+            seconds = time.perf_counter() - t0
+            launches = _launches()
+        finally:
+            tap.close()
+        runs[role] = (None if plain is None else plain.cpu(), closed.cpu(), seconds, launches, tap)
+    plain, closed, seconds, launches, tap = runs["card"]
+    _, cpu_closed, cpu_seconds, _, cpu_tap = runs["cpu"]
+    checked = tap.check("loop benchmark")
+    diff = float(torch.linalg.norm(closed[..., :3, 3] - cpu_closed[..., :3, 3], dim=-1).max())
+    (ate0, drift0), (ate1, drift1) = _loop_metrics(plain, gt), _loop_metrics(closed, gt)
+    L = LOOP_FRAMES
+    expected = (L - 1) * 2 * slam_kw["numiters"] + _closure_launches(1, 30)
+    _log(f"loop benchmark B=1 L={L} 96x128: card {L / seconds:.3f} frames/s with closure ({seconds:.3f} s; cpu "
+         f"{cpu_seconds:.3f} s), ATE {ate0} -> {ate1} m, end drift {drift0} -> {drift1} m, max translation card vs "
+         f"cpu {diff} m, closure KNN calls {len(tap.shapes)} of shapes "
+         f"{sorted(set(tap.shapes))} (cpu {len(cpu_tap.shapes)}), pose_graph_refine {tap.refine_ms} ms, launches "
+         f"{launches}; {checked}")
+    _check(diff < 1e-4, f"loop benchmark: card poses {diff} m from the cpu's")
+    _check(drift1 < 0.5 * drift0, f"loop benchmark: end drift {drift0} -> {drift1}")
+    _check(ate1 < ate0, f"loop benchmark: ATE {ate0} -> {ate1}")
+    _check_launches("loop benchmark", launches, {"knn": expected, "winner": 0})
+    _check(len(tap.shapes) == _closure_launches(1, 30), f"loop benchmark: {len(tap.shapes)} closure KNN calls")
+    return launches
+
+
+def _render_loop_card(dev, n, H, W, radius, depth_noise, seed=0, iters=40):
+    """``datasets.synth.render_loop_sequence`` ray-cast in float64 on the
+    card (the synth module's surface and texture, ``iters`` fixed-point
+    steps, its low-frequency multiplicative depth warp drawn from the same
+    seeded generator). Returns (colors (1, n, H, W, 3) 0-255, depths
+    (1, n, H, W, 1), intrinsics (1, 1, 4, 4)) float32 on the card and the
+    rebased ground-truth poses (1, n, 4, 4) numpy."""
+    from gradslam_tpu_torch.datasets import synth
+
+    f64 = dict(dtype=torch.float64, device=dev)
+    fx = fy = 525.0 * W / 640.0
+    cx, cy = (W - 1) / 2.0, (H - 1) / 2.0
+    poses = synth.loop_trajectory(n, radius=radius)
+    u = torch.arange(W, **f64)[None, :].expand(H, W)
+    v = torch.arange(H, **f64)[:, None].expand(H, W)
+    dc = torch.stack([(u - cx) / fx, (v - cy) / fy, torch.ones_like(u)], dim=-1)
+    rng = np.random.default_rng(seed)
+    uu = torch.linspace(0.0, 2.0 * np.pi, W, dtype=torch.float32, device=dev)[None, :]
+    vv = torch.linspace(0.0, 2.0 * np.pi, H, dtype=torch.float32, device=dev)[:, None]
+    colors, depths = [], []
+    for T in poses:
+        R = torch.from_numpy(T[:3, :3].astype(np.float64)).to(dev)
+        t = T[:3, 3].astype(np.float64)
+        d = (dc[..., None, :] * R).sum(-1)  # world-frame ray directions
+        _check(bool((d[..., 2] > 0.05).all()), "loop render: a ray points away from the surface")
+        s = torch.full((H, W), 3.0, **f64)
+        for _ in range(iters):
+            s = (synth.surface_height(t[0] + s * d[..., 0], t[1] + s * d[..., 1]) - t[2]) / d[..., 2]
+        colors.append(synth.surface_texture(t[0] + s * d[..., 0], t[1] + s * d[..., 1]).float())
+        dep = s.float()
+        if depth_noise:
+            ph = rng.uniform(0, 2 * np.pi, size=4)
+            amp = rng.uniform(0.5, 1.0, size=2)
+            warp = (amp[0] * torch.sin(uu + ph[0]) * torch.cos(vv + ph[1]) + amp[1] * torch.sin(2 * uu + ph[2])
+                    + 0.3 * torch.cos(vv + ph[3]))
+            dep = dep * (1.0 + depth_noise * warp)
+        depths.append(dep)
+    K = np.eye(4, dtype=np.float32)
+    K[0, 0], K[1, 1], K[0, 2], K[1, 2] = fx, fy, cx, cy
+    T0inv = np.linalg.inv(poses[0].astype(np.float64))
+    gt = (T0inv[None] @ poses.astype(np.float64)).astype(np.float32)
+    return (torch.stack(colors)[None] * 255.0, torch.stack(depths)[None, ..., None],
+            torch.from_numpy(K).to(dev)[None, None], gt[None])
+
+
+def loop_full_width_phase(dev):
+    """Phase 19: the loop rendered at 480x640 (100 frames, radius 0.55, depth
+    noise 0.002) through ``ICPSLAM(odom_targets='recent',
+    loop_closure='both')`` with ``close_loops``' defaults (K=8, 7 yaw
+    hypotheses, invariant descriptors, 20 ICP iterations, dsratio 4) and the
+    loop benchmark's gates: ATE and end drift with and without closure, and
+    each detector's accepted edges with their measurement's error against
+    the ground truth; the closure of the pose detector alone must lower the
+    end drift and not raise ATE. With both detectors it is logged, not
+    gated: the appearance detector adds eight overlapping pairs 30-70
+    frames apart whose measurements are off by 1-3 cm (the depth warp's
+    bias), and at equal weights these outweigh a chain whose own ATE is
+    ~6 mm (an H100 run: ATE 5.6 -> 8.3 mm while the end drift falls 4.4 ->
+    2.9 mm; at 120x160 the JAX package accepts the same pairs and gives the
+    same poses, tests/test_torch_loopclosure_rendered.py); 82 KNN launches
+    in the
+    closure, a dozen of its calls (the B=56 multistart one too) bit-equal to
+    the plain version, the kernel timed at B=56 and B=8, and two closures of
+    the same trajectory bit-identical. Returns (launches, KNN timings)."""
+    from gradslam_tpu_torch import ICPSLAM, RGBDImages
+    from gradslam_tpu_torch.slam import close_loops_rgbd
+
+    H, W = E2E_HW
+    t0 = time.perf_counter()
+    colors, depths, K, gt = _render_loop_card(dev, LOOP_FRAMES, H, W, 0.55, 0.002)
+    _sync(depths)
+    render_s = time.perf_counter() - t0
+    rgbd = RGBDImages(colors, depths, K, device=dev)
+    lc_kw = dict(LOOP_GATES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, plain = ICPSLAM(odom_targets="recent", device=dev)(rgbd)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    keep = {0, 1, 20, 39, 40, 41, 42, 43, 61, 80, 81}
+    tap = _KnnTap(keep=lambda n, src: n in keep)
+    try:
+        _reset_launches()
+        t0 = time.perf_counter()
+        _, closed = ICPSLAM(odom_targets="recent", loop_closure="both", loop_closure_kwargs=lc_kw, device=dev)(rgbd)
+        torch.cuda.synchronize()
+        closed_s = time.perf_counter() - t0
+        launches = _launches()
+        rgb, depth, Kt = (x for x in (rgbd.rgb_image, rgbd.depth_image, rgbd.intrinsics))
+        t0 = time.perf_counter()
+        again = close_loops_rgbd(rgb, depth, Kt, plain, detection="both", **lc_kw)
+        torch.cuda.synchronize()
+        close_ms = 1e3 * (time.perf_counter() - t0)
+        twice = close_loops_rgbd(rgb, depth, Kt, plain, detection="both", **lc_kw)
+    finally:
+        tap.close()
+    checked = tap.check("loop full width")
+    pose_closed = close_loops_rgbd(rgb, depth, Kt, plain, detection="pose", **lc_kw)
+    (ate0, drift0), (ate1, drift1) = _loop_metrics(plain, gt), _loop_metrics(closed, gt)
+    ate_p, drift_p = _loop_metrics(pose_closed, gt)
+    L = LOOP_FRAMES
+    n_closure = len(tap.shapes) // 3  # three closures ran under the tap
+    _log(f"loop full width B=1 L={L} {H}x{W}: rendered in {render_s:.3f} s, ICPSLAM {L / plain_s:.3f} frames/s "
+         f"without closure ({plain_s:.3f} s), {closed_s:.3f} s with it; close_loops_rgbd {close_ms:.3f} ms of which "
+         f"pose_graph_refine {[round(x, 3) for x in tap.refine_ms]} ms; ATE {ate0} -> {ate1} m with 'both' "
+         f"({ate_p} with 'pose'), end drift {drift0} -> {drift1} m ({drift_p}); closure KNN shapes "
+         f"{sorted(set(tap.shapes))}; repeat bit-identical {torch.equal(again, twice) and torch.equal(again, closed)}; "
+         f"launches {launches}; {checked}")
+    _log(f"loop full width accepted edges (i, j, |t - t_gt| m, rotation from the truth in degrees) by detector: "
+         f"{_edge_errors(plain[0], depth, Kt, torch.from_numpy(gt[0]).to(dev), lc_kw)}")
+    _check(torch.equal(again, twice), "loop full width: two closures of one trajectory differ")
+    _check(torch.equal(again, closed), "loop full width: ICPSLAM's closure differs from close_loops_rgbd's")
+    _check(ate_p <= ate0 and drift_p < drift0, f"loop full width: pose closure ATE {ate0} -> {ate_p}, end drift "
+           f"{drift0} -> {drift_p}")
+    _check(n_closure == _closure_launches(2, 20), f"loop full width: {n_closure} KNN calls a closure")
+    _check_launches("loop full width", launches, {"knn": (L - 1) * 40 + _closure_launches(2, 20), "winner": 0})
+    by_n = {n: (src, tgt, valid) for n, src, tgt, valid, _ in tap.calls}
+    timings = {}
+    for n, name in ((41, "multistart"), (0, "pose set")):
+        src, tgt, valid = by_n[n]
+        case = f"loop closure {name} B={src.shape[0]} S={src.shape[1]} T={tgt.shape[1]} {H}x{W}"
+        timings[case] = _time_knn_call(case, src, tgt, valid)
+    return launches, timings
+
+
+def _edge_errors(poses, depth, K, gt, gates, K_max=8):
+    """Each detector's accepted candidates of one (L, 4, 4) trajectory with
+    its ICP measurement's error against the ground truth's relative pose:
+    {detector: [(i, j, translation error m, rotation error degrees)]}."""
+    from gradslam_tpu_torch.slam import (
+        detect_loop_closures,
+        detect_loop_closures_descriptor,
+        frame_clouds_from_rgbd,
+        keyframe_descriptors_invariant,
+        verify_loop_closures,
+    )
+
+    pts, nrm, val, _, _ = (x[0] for x in frame_clouds_from_rgbd(depth, K, 4))
+    sets = (("pose", detect_loop_closures(poses, K_max, **gates), "poses"),
+            ("appearance", detect_loop_closures_descriptor(keyframe_descriptors_invariant(pts, nrm, val), K_max,
+                                                           gates["min_separation"]), "multistart"))
+    out = {}
+    for name, cand, init in sets:
+        Z, w = verify_loop_closures(cand, poses, pts, nrm, val, init=init)
+        i, j = cand.edges[:, 0].long(), cand.edges[:, 1].long()
+        Z_gt = torch.linalg.inv(gt[i]) @ gt[j]
+        t_err = torch.linalg.norm(Z[:, :3, 3] - Z_gt[:, :3, 3], dim=-1)
+        cos = ((Z[:, :3, :3] * Z_gt[:, :3, :3]).sum((-2, -1)) - 1.0) / 2.0
+        r_err = torch.rad2deg(torch.arccos(torch.clamp(cos, -1.0, 1.0)))
+        out[name] = [(a, b, round(float(te), 5), round(float(re), 3))
+                     for a, b, te, re, acc in zip(i.tolist(), j.tolist(), t_err, r_err, (w > 0).tolist()) if acc]
+    return out
+
+
+def managed_closure_phase(dev):
+    """Phase 20a: ``slam_sequence_managed(..., loop_closure='both')`` in
+    TestManagedLoopClosure's configuration (golden clip at 60x80, L=10,
+    segments of 3) on the card against the CPU (1e-4 m) and against the
+    unclosed run (0.02 m, the JAX test's bound), every winner selection
+    (the refreshes after accepted closures too) and some KNN calls against
+    the plain version. Returns the card's launches."""
+    from gradslam_tpu_torch import PointFusion
+
+    colors, depths, K = _golden_clip(10)
+    colors, depths = colors[:, :, ::2, ::2].copy(), depths[:, :, ::2, ::2].copy()
+    K = K.copy()
+    K[:, :, :2] /= 2
+    B, L, H, W = colors.shape[:4]
+    opts = PointFusion(odom="gradicp", numiters=8, device="cpu").opts
+    lc = dict(loop_closure="both", loop_closure_kwargs=dict(min_separation=2, max_candidates=2, max_distance=0.5))
+    kw = dict(capacity=L * H * W, segment_len=3)
+    out = {}
+    for role, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        rgb, depth, Kt = (torch.from_numpy(x).to(d) for x in (colors, depths, K))
+        if role == "card":
+            m, poses, seconds, launches, rec = _managed_run(d, rgb, depth, Kt, opts, **kw, **lc)
+            _, plain, plain_s, plain_launches, _ = _managed_run(d, rgb, depth, Kt, opts, **kw)
+            out["card"] = (poses.cpu(), plain.cpu(), seconds, plain_s, launches, plain_launches, rec)
+        else:
+            from gradslam_tpu_torch.slam import slam_sequence_managed
+
+            out["cpu"] = slam_sequence_managed(rgb, depth, Kt, None, opts, **kw, **lc)[1]
+    poses, plain, seconds, plain_s, launches, plain_launches, rec = out["card"]
+    checked = rec.check("managed closure")
+    diff = float(torch.linalg.norm(poses[..., :3, 3] - out["cpu"][..., :3, 3], dim=-1).max())
+    terr = float(torch.linalg.norm(poses[..., :3, 3] - plain[..., :3, 3], dim=-1).max())
+    refreshes = sum(w == "lifecycle" for w, _, _ in rec.winners) - len(rec.compactions)
+    _log(f"managed closure golden B={B} L={L} {H}x{W} segment 3: {B * L / seconds:.3f} frames/s with closure "
+         f"({seconds:.3f} s; {B * L / plain_s:.3f} without), {len(rec.compactions)} compactions, {refreshes} refreshes "
+         f"after accepted closures, max translation card vs cpu {diff} m, from the unclosed run {terr} m, launches "
+         f"{launches} (unclosed {plain_launches}); {checked}")
+    _check(diff < 1e-4, f"managed closure: card poses {diff} m from the cpu's")
+    _check(terr < 0.02, f"managed closure: {terr} m from the unclosed run")
+    _check(refreshes >= 1, "managed closure: no closure was accepted at a boundary")
+    boundaries = len([t for t in range(4, L, 3) if 2 < t < L]) + 1
+    _check_launches("managed closure", launches, {
+        "knn": plain_launches["knn"] + boundaries * _closure_launches(2, 20),
+        "winner": plain_launches["winner"] + refreshes,
+    })
+    return launches
+
+
+def files_closure(dev, colors, depths, K, gt, poses):
+    """Phase 20b: phase 15's managed trajectory closed by
+    ``close_loops_rgbd(..., detection='both', min_separation=3,
+    max_candidates=2)`` (test_real_format_e2e.py's step): ATE below 5e-3 m,
+    82 KNN launches (batches of 4 and 2*2*7 = 28 at S=T=19,200), a dozen
+    calls bit-equal. Returns (launches, KNN timing of the B=28 call)."""
+    from gradslam_tpu_torch.metrics import ate_rmse
+    from gradslam_tpu_torch.slam import close_loops_rgbd
+
+    keep = {0, 1, 20, 40, 41, 42, 43, 60, 80, 81}
+    tap = _KnnTap(keep=lambda n, src: n in keep)
+    try:
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        closed = close_loops_rgbd(colors, depths, K, poses, detection="both", min_separation=3, max_candidates=2)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        launches = _launches()
+    finally:
+        tap.close()
+    checked = tap.check("files closure")
+    ate0, ate1 = ate_rmse(poses, gt), ate_rmse(closed, gt)
+    _log(f"files closure B={colors.shape[0]} L={colors.shape[1]}: close_loops_rgbd {ms:.3f} ms (pose_graph_refine "
+         f"{[round(x, 3) for x in tap.refine_ms]} ms), ATE {ate0.tolist()} -> {ate1.tolist()} m, closure KNN shapes "
+         f"{sorted(set(tap.shapes))}, launches {launches}; {checked}")
+    _check(bool((ate1 < 5e-3).all()), f"files closure: ATE {ate1.tolist()}")
+    _check_launches("files closure", launches, {"knn": _closure_launches(2, 20), "winner": 0})
+    src, tgt, valid = next((s, t, v) for n, s, t, v, _ in tap.calls if n == 41)
+    H, W = colors.shape[2:4]
+    case = f"files closure multistart B={src.shape[0]} S={src.shape[1]} T={tgt.shape[1]} {H}x{W}"
+    return launches, {case: _time_knn_call(case, src, tgt, valid)}
+
+
+def _ba_problem(L, M, seed=0):
+    """``tools/bench_ba.py``'s problem: a pose chain observing M landmarks,
+    6 observations each, with a little noise."""
+    rng = np.random.default_rng(seed)
+    t = np.linspace(0, 1, L)
+    poses = np.tile(np.eye(4, dtype=np.float32), (L, 1, 1))
+    poses[:, 0, 3] = t * 2.0
+    poses[:, 1, 3] = 0.1 * np.sin(6 * t)
+    landmarks = rng.uniform([-1, -1, 2.0], [3, 1, 4.0], size=(M, 3)).astype(np.float32)
+    obs_lm = np.repeat(np.arange(M, dtype=np.int32), BA_OBS_PER_LM)
+    base = rng.integers(0, L, size=M)
+    obs_pose = ((base[:, None] + np.arange(BA_OBS_PER_LM)[None, :]) % L).astype(np.int32).reshape(-1)
+    Tinv = np.linalg.inv(poses.astype(np.float64))[obs_pose]
+    pw = np.concatenate([landmarks[obs_lm], np.ones((len(obs_lm), 1))], axis=1)
+    pc = np.einsum("nij,nj->ni", Tinv, pw)[:, :3] + rng.normal(0, 0.002, (len(obs_lm), 3))
+    lms0 = landmarks + rng.normal(0, 0.05, landmarks.shape).astype(np.float32)
+    return poses, lms0.astype(np.float32), obs_pose, obs_lm, pc.astype(np.float32)
+
+
+def refinement_phase(dev, ba_iters=8, cg_iters=64):
+    """Phase 21: ``ba_refine`` with both solvers at ``tools/bench_ba.py``'s
+    problems on the card (ms per Gauss-Newton iteration), dense against
+    'pcg' after ``ba_iters`` iterations and, at 1e4 landmarks, one
+    iteration against the CPU, within 1e-4 (the CPU test's dense-vs-pcg
+    tolerance);
+    ``pose_graph_refine`` at L=256 against the CPU; and
+    ``examples/train_loopclosure_ate.py``'s loss, the ATE after
+    ``close_loops`` of range-scaled points: d loss / d log(scale) on the
+    card against the CPU within 1e-3 relative, float32. Returns the loss
+    run's launches."""
+    from gradslam_tpu_torch.geometry import se3_exp
+    from gradslam_tpu_torch.metrics import ate_rmse
+    from gradslam_tpu_torch.parallel import PoseGraph, ba_refine, pose_graph_refine
+    from gradslam_tpu_torch.slam import close_loops
+
+    cpu = torch.device("cpu")
+    for L in (64, 256):
+        for M in (10_000, 100_000):
+            arrays = _ba_problem(L, M)
+            on = lambda d: tuple(torch.from_numpy(x).to(d) for x in arrays)
+            card_args, cpu_args = on(dev), on(cpu)
+            res = {}
+            for solver in ("dense", "pcg"):
+                kw = dict(max_obs_per_landmark=BA_OBS_PER_LM, solver=solver, cg_iters=cg_iters)
+                err = None
+                if M <= BA_CPU_MAX_LANDMARKS:
+                    one = ba_refine(*card_args, num_iters=1, **kw)
+                    ref = ba_refine(*cpu_args, num_iters=1, **kw)
+                    err = max(float((a.cpu() - b).abs().max()) for a, b in zip(one, ref))
+                    _check(err <= 1e-4, f"ba L={L} M={M} {solver}: card vs cpu {err}")
+                ms = _wall_ms(lambda: ba_refine(*card_args, num_iters=ba_iters, **kw), reps=1) / ba_iters
+                res[solver] = (ba_refine(*card_args, num_iters=ba_iters, **kw), err, ms)
+            gap = max(float((a - b).abs().max()) for a, b in zip(res["dense"][0], res["pcg"][0]))
+            _check(gap <= 1e-4, f"ba L={L} M={M}: dense vs pcg on the card {gap}")
+            _log(f"ba L={L} M={M} N={M * BA_OBS_PER_LM}: ms per GN iteration (host clock, {ba_iters} iterations) dense "
+                 f"{res['dense'][2]:.3f} pcg {res['pcg'][2]:.3f} (cg {cg_iters}); one iteration card vs cpu dense "
+                 f"{res['dense'][1]} pcg {res['pcg'][1]}; dense vs pcg after {ba_iters}: {gap}")
+
+    # a 256-keyframe chain with loop edges
+    rng = np.random.default_rng(1)
+    L = 256
+    xi = torch.from_numpy(rng.normal(0, 0.05, (L, 6)).astype(np.float32))
+    gt = [torch.eye(4)]
+    for k in range(1, L):
+        gt.append(gt[-1] @ se3_exp(xi[k]))
+    gt = torch.stack(gt)
+    edges = [(i, i + 1) for i in range(L - 1)] + [tuple(sorted(rng.choice(L, 2, replace=False))) for _ in range(64)]
+    edges = torch.tensor(edges, dtype=torch.int32)
+    Z = torch.linalg.inv(gt[edges[:, 0].long()]) @ gt[edges[:, 1].long()]
+    init = se3_exp(torch.from_numpy(rng.normal(0, 0.02, (L, 6)).astype(np.float32))) @ gt
+    init[0] = gt[0]
+    g = PoseGraph(init, edges, Z, torch.ones(edges.shape[0]))
+    ref = pose_graph_refine(g, num_iters=10)
+    card_g = PoseGraph(*(x.to(dev) for x in g))
+    got = pose_graph_refine(card_g, num_iters=10)
+    pg_ms = _wall_ms(lambda: pose_graph_refine(card_g, num_iters=10), reps=3)
+    pg_err = float((got.cpu() - ref).abs().max())
+    pg_gt = float((got.cpu() - gt).abs().max())
+    _log(f"pose graph L={L} E={edges.shape[0]}: 10 iterations {pg_ms:.3f} ms (host clock), card vs cpu {pg_err}, from the "
+         f"ground truth {pg_gt}")
+    _check(pg_err <= 1e-4, f"pose graph: card vs cpu {pg_err}")
+
+    # examples/train_loopclosure_ate.py's loss at its defaults
+    Lf, N, true_scale = 13, 256, 1.15
+    rng = np.random.RandomState(0)
+    world = rng.uniform(-1, 1, (N, 3)).astype(np.float32)
+    world[:, 2] += 4.0
+    normals = rng.randn(N, 3).astype(np.float32)
+    normals /= np.linalg.norm(normals, axis=-1, keepdims=True)
+    true_poses, pts, nrms = [], [], []
+    for k in range(Lf):
+        ang = 2 * np.pi * k / (Lf - 1)
+        T = np.eye(4, dtype=np.float32)
+        T[:3, 3] = 0.2 * np.array([np.cos(ang) - 1.0, np.sin(ang), 0.0])
+        true_poses.append(T)
+        Tinv = np.linalg.inv(T)
+        pts.append(world @ Tinv[:3, :3].T + Tinv[:3, 3])
+        nrms.append(normals @ Tinv[:3, :3].T)
+    drifted = [true_poses[0]]
+    for k in range(1, Lf):
+        inc = np.linalg.inv(true_poses[k - 1]) @ true_poses[k]
+        noise = se3_exp(torch.from_numpy(rng.randn(6).astype(np.float32) * 0.02)).numpy()
+        drifted.append(drifted[-1] @ (noise @ inc))
+    arrays = (np.stack(drifted).astype(np.float32), np.stack(pts).astype(np.float32) / true_scale,
+              np.stack(nrms).astype(np.float32), np.stack(true_poses).astype(np.float32))
+    grads = {}
+    for role, d in (("card", dev), ("cpu", cpu)):
+        dr, obs, nrm, gtp = (torch.from_numpy(x).to(d) for x in arrays)
+        log_s = torch.zeros((), device=d, requires_grad=True)
+        _reset_launches()
+        refined, _, w = close_loops(dr, torch.exp(log_s) * obs, nrm, torch.ones(Lf, N, dtype=torch.bool, device=d),
+                                    max_candidates=8, min_separation=max(3, Lf // 3), max_distance=0.3,
+                                    icp_numiters=8, refine_iters=5)
+        loss = ate_rmse(refined, gtp, align=False)
+        loss.backward()
+        grads[role] = (float(loss.detach()), float(log_s.grad), int((w > 0).sum()), _launches())
+    (l_c, g_c, n_c, launches), (l_p, g_p, n_p, _) = grads["card"], grads["cpu"]
+    rel = abs(g_c - g_p) / abs(g_p)
+    _log(f"train_loopclosure_ate loss L={Lf} N={N}: card loss {l_c} d/dlog(scale) {g_c} ({n_c} loop edges), cpu "
+         f"{l_p} {g_p} ({n_p}), relative gap {rel}, launches {launches}")
+    _check(n_c == n_p and n_c > 0 and rel <= 1e-3, f"train_loopclosure_ate: card {g_c} vs cpu {g_p}")
+    _check_launches("loop closure loss", launches, {"knn": _closure_launches(1, 8), "winner": 0})
+    return launches
+
+
 def _build_kernels():
     """Builds every kernel's source at once (one nvcc each) and loads them."""
     kernels = _kernels()
@@ -1715,11 +2264,16 @@ def main() -> int:
         dev, "projective scannet", assoc="projective", assoc_window=3 * H * W, active_capacity=(3 * H * W) // 2
     )
     by_path["object api"] = object_api_phase(dev)
-    by_path["files tum 480x640"], timings = files_phase(dev)
+    by_path["files tum 480x640"], timings, by_path["files tum close_loops_rgbd"] = files_phase(dev)
     for name, t in timings.items():
         entries[name]["other_shapes"].update(t)
     by_path["managed scannet"] = managed_scannet_phase(dev)
     by_path["compacted grad golden"] = compacted_grad_phase(dev)
+    by_path["loop benchmark 96x128 ICPSLAM + closure"] = loop_benchmark_phase(dev)
+    by_path["loop 480x640 ICPSLAM + closure"], timings = loop_full_width_phase(dev)
+    entries["knn"]["other_shapes"].update(timings)
+    by_path["managed golden + closure"] = managed_closure_phase(dev)
+    by_path["train_loopclosure_ate loss"] = refinement_phase(dev)
     for name, entry in entries.items():
         # launches: the ScanNet geometry's run of the path each kernel is
         # timed for; every path's count beside it

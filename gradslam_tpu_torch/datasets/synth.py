@@ -32,6 +32,16 @@ __all__ = [
 ]
 
 
+def _trig(x):
+    """(sin, cos) of the array library of ``x``: numpy, or torch for a
+    tensor (so a renderer on the card can sample the same surface)."""
+    if type(x).__module__.startswith("torch"):
+        import torch
+
+        return torch.sin, torch.cos
+    return np.sin, np.cos
+
+
 def surface_height(x, y):
     """Height field z = f(x, y): smooth, textured, |slope| ~< 1.
 
@@ -42,24 +52,28 @@ def surface_height(x, y):
     instead of the true alignment (measured during round 4 — see
     tools/bench_loop.py).
     """
+    sin, cos = _trig(x)
     return (
         3.0
-        + 0.25 * np.sin(1.7 * x + 0.5) * np.cos(1.9 * y)
-        + 0.15 * np.sin(0.9 * y + 1.0)
-        + 0.09 * np.sin(5.1 * x + 2.0) * np.cos(4.7 * y + 0.7)
+        + 0.25 * sin(1.7 * x + 0.5) * cos(1.9 * y)
+        + 0.15 * sin(0.9 * y + 1.0)
+        + 0.09 * sin(5.1 * x + 2.0) * cos(4.7 * y + 0.7)
     )
 
 
 def surface_texture(x, y):
     """RGB texture sampled at world (x, y), values in [0, 1]."""
-    return np.stack(
-        [
-            0.5 + 0.35 * np.sin(3.0 * x) + 0.1 * np.sin(11.0 * x + 2 * y),
-            0.5 + 0.35 * np.cos(2.0 * y + 1.0) + 0.1 * np.cos(9.0 * y - x),
-            0.5 + 0.35 * np.sin(1.3 * (x + y)) + 0.1 * np.sin(7.0 * (x - y)),
-        ],
-        axis=-1,
-    )
+    sin, cos = _trig(x)
+    channels = [
+        0.5 + 0.35 * sin(3.0 * x) + 0.1 * sin(11.0 * x + 2 * y),
+        0.5 + 0.35 * cos(2.0 * y + 1.0) + 0.1 * cos(9.0 * y - x),
+        0.5 + 0.35 * sin(1.3 * (x + y)) + 0.1 * sin(7.0 * (x - y)),
+    ]
+    if sin is np.sin:
+        return np.stack(channels, axis=-1)
+    import torch
+
+    return torch.stack(channels, dim=-1)
 
 
 def render_frames(

@@ -494,7 +494,13 @@ class ICPSLAM:
         odom: 'gt', 'icp' or 'gradicp'.
         dsratio, numiters, damp, dist_thresh, map_capacity, tgt_capacity:
             as in :class:`SLAMOptions`.
-        loop_closure: only None; loop closure waits for ROADMAP A12.
+        loop_closure: None (off) or 'pose', 'appearance' or 'both': after
+            the sequence, detect, ICP-verify and pose-graph-correct loop
+            closures on the recovered trajectory
+            (:func:`~gradslam_tpu_torch.slam.loopclosure.close_loops_rgbd`;
+            appearance detection uses the viewpoint-robust invariant
+            descriptor). The map is not re-deformed.
+        loop_closure_kwargs: overrides forwarded to it.
         device: where the run happens; default ``"cuda"`` (raises when no
             CUDA device is present; pass ``device="cpu"`` for the CPU).
         **kwargs: further :class:`SLAMOptions` fields.
@@ -519,8 +525,8 @@ class ICPSLAM:
     ):
         if odom not in ("gt", "icp", "gradicp"):
             raise ValueError(f"odometry method {odom!r} not in ('gt', 'icp', 'gradicp')")
-        if loop_closure is not None or loop_closure_kwargs:
-            raise NotImplementedError("loop closure waits for ROADMAP A12")
+        if loop_closure not in (None, "pose", "appearance", "both"):
+            raise ValueError(f"loop_closure must be None, 'pose', 'appearance' or 'both', got {loop_closure!r}")
         unknown = set(kwargs) - _OPTION_FIELDS
         if unknown:
             raise TypeError(f"unknown SLAM options: {sorted(unknown)}")
@@ -551,6 +557,8 @@ class ICPSLAM:
             )
         self.device = resolve_device(device)
         self.odom = odom
+        self.loop_closure = loop_closure
+        self.loop_closure_kwargs = dict(loop_closure_kwargs or {})
         self.opts = SLAMOptions(
             odom=odom, dsratio=dsratio, numiters=numiters, damp=damp,
             dist_thresh=dist_thresh, fusion=self._fusion, map_capacity=map_capacity,
@@ -580,6 +588,11 @@ class ICPSLAM:
         map_state, poses = slam_sequence(
             rgbd.rgb_image, rgbd.depth_image, rgbd.intrinsics, rgbd.poses, self.opts, capacity
         )
+        if self.loop_closure is not None:
+            from .loopclosure import close_loops_rgbd
+
+            poses = close_loops_rgbd(rgbd.rgb_image, rgbd.depth_image, rgbd.intrinsics, poses,
+                                     detection=self.loop_closure, **self.loop_closure_kwargs)
         return map_to_pointclouds(map_state), poses
 
     def step(self, map_state: MapState, live_frame: RGBDImages, prev_pose=None):

@@ -221,8 +221,23 @@ def slam_sequence_managed(
     :func:`refresh_slam_state` first. A checkpoint taken at a boundary where
     the uninterrupted run compacts resumes to the bitwise identical state.
 
-    ``loop_closure`` waits for ROADMAP A12: any mode raises
-    NotImplementedError.
+    With ``loop_closure`` set ('pose', 'appearance' or 'both'), detection,
+    verification and pose-graph correction
+    (:func:`~gradslam_tpu_torch.slam.loopclosure.close_loops_batched`, every
+    batch entry in one call) run at every segment boundary but the last,
+    where the host sync already is, over the trajectory so far, and once
+    more over the whole trajectory at the end.
+    When a loop edge is accepted at a boundary, the past trajectory is
+    refined AND the live tracking pose jumps to its corrected value (the
+    caches are rebuilt at the new pose by :func:`refresh_slam_state`, one
+    more winner selection), so drift is removed during the run. The fused
+    map is not re-deformed. Appearance detection uses
+    :func:`~gradslam_tpu_torch.slam.loopclosure.keyframe_descriptors_invariant`;
+    the per-keyframe clouds are computed once for the whole sequence.
+    ``loop_closure_kwargs`` forwards thresholds (``max_candidates``,
+    ``min_separation``, ``max_descriptor_dist``, ``min_inlier_frac``,
+    ``dsratio``, ...). After a resume the closure starts from the resume
+    point.
 
     Returns:
         (map_state, poses (B, L, 4, 4)) over the frames of ``rgb_seq``.
@@ -233,11 +248,29 @@ def slam_sequence_managed(
         raise ValueError(f"segment_len must be >= 1, got {segment_len}")
     if loop_closure not in (None, "pose", "appearance", "both"):
         raise ValueError(f"loop_closure must be None, 'pose', 'appearance' or 'both', got {loop_closure!r}")
-    if loop_closure is not None or loop_closure_kwargs:
-        raise NotImplementedError("loop closure in the managed run waits for ROADMAP A12")
     _check_options(opts, poses_seq, "the managed lifecycle")
     B, L, H, W, _ = rgb_seq.shape
     has_poses = poses_seq is not None
+
+    lc_kwargs = dict(loop_closure_kwargs or {})
+    lc_dsratio = lc_kwargs.pop("dsratio", opts.dsratio or 4)
+    if loop_closure is not None:
+        from .loopclosure import close_loops_batched, frame_clouds_from_rgbd, keyframe_descriptors_invariant
+
+        # pose-independent camera-frame clouds of the whole sequence, once
+        lc_pts, lc_nrm, lc_val, _, _ = frame_clouds_from_rgbd(depth_seq, intrinsics, lc_dsratio)
+
+    def close_loops_so_far(poses_btl):
+        """Every batch entry's trajectory so far closed in one batched call:
+        (refined poses, whether any loop edge was accepted)."""
+        t_now = poses_btl.shape[1]
+        pts, nrm, val = lc_pts[:, :t_now], lc_nrm[:, :t_now], lc_val[:, :t_now]
+        descs = None
+        if loop_closure in ("appearance", "both"):
+            descs = keyframe_descriptors_invariant(pts, nrm, val)
+        refined, _, w = close_loops_batched(poses_btl, pts, nrm, val, detection=loop_closure, descriptors=descs,
+                                            **lc_kwargs)
+        return refined, bool((w > 0).any())
 
     if resume_from is not None:
         m0, pose0 = resume_from
@@ -271,4 +304,16 @@ def slam_sequence_managed(
         state, p = _run_frames(state, rgb_seq, depth_seq, intrinsics, poses_seq, opts, has_poses, t, end)
         poses += p
         t = end
-    return state.map_state, torch.stack(poses, dim=1)
+        # in-loop closure at the boundary (not the last: the whole
+        # trajectory is closed below and no tracking is left to correct)
+        if loop_closure is not None and 2 < t < L:
+            refined, hit = close_loops_so_far(torch.stack(poses, dim=1))
+            if hit:
+                poses = list(refined.unbind(1))
+                state = refresh_slam_state(state._replace(pose=refined[:, -1]), intrinsics, opts, H, W)
+    poses = torch.stack(poses, dim=1)
+    if loop_closure is not None and L > 2:
+        refined, hit = close_loops_so_far(poses)
+        if hit:
+            poses = refined
+    return state.map_state, poses

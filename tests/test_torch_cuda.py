@@ -626,3 +626,115 @@ def test_dataloader_copies_to_the_card(cuda_device):
     for k, (x, names) in enumerate(batches):
         assert x.is_cuda and names == [f"f{2 * k}", f"f{2 * k + 1}"]
         assert torch.equal(x[:, 0, 0, 0, 0].cpu(), torch.tensor([2.0 * k, 2.0 * k + 1]))
+
+
+def _loop_clouds(L=9, n_pts=256, drift=0.02, seed=0):
+    """tests/slam/test_loopclosure.py's synthetic loop, made with numpy and
+    the port's ``se3_exp`` on the CPU: (drifted poses, camera-frame points,
+    normals, validity) as float32 arrays."""
+    from gradslam_tpu_torch.geometry import se3_exp
+
+    rng = np.random.RandomState(seed)
+    world = rng.uniform(-1.0, 1.0, (n_pts, 3)).astype(np.float32)
+    world[:, 2] += 4.0
+    normals = rng.randn(n_pts, 3).astype(np.float32)
+    normals /= np.linalg.norm(normals, axis=-1, keepdims=True)
+    true_poses, frames, frame_normals = [], [], []
+    for k in range(L):
+        ang = 2 * np.pi * k / (L - 1)
+        T = np.eye(4, dtype=np.float32)
+        T[:3, 3] = 0.15 * np.array([np.cos(ang) - 1.0, np.sin(ang), 0.0])
+        true_poses.append(T)
+        Tinv = np.linalg.inv(T)
+        frames.append(world @ Tinv[:3, :3].T + Tinv[:3, 3])
+        frame_normals.append(normals @ Tinv[:3, :3].T)
+    drifted = [true_poses[0]]
+    for k in range(1, L):
+        inc = np.linalg.inv(true_poses[k - 1]) @ true_poses[k]
+        noisy = se3_exp(torch.from_numpy(rng.randn(6).astype(np.float32) * drift)).numpy() @ inc
+        drifted.append(drifted[-1] @ noisy)
+    return (np.stack(drifted).astype(np.float32), np.stack(frames).astype(np.float32),
+            np.stack(frame_normals).astype(np.float32), np.ones((L, n_pts), bool))
+
+
+def _close_both(dev, arrays):
+    from gradslam_tpu_torch.slam import close_loops, keyframe_descriptors_invariant
+
+    dr, pts, nrm, val = (torch.from_numpy(x).to(dev) for x in arrays)
+    return close_loops(dr, pts, nrm, val, max_candidates=4, min_separation=5, max_distance=0.3,
+                       detection="both", descriptors=keyframe_descriptors_invariant(pts, nrm, val))
+
+
+def test_close_loops_on_the_card_matches_the_cpu(cuda_device):
+    """Both detectors on the card: the candidates and acceptance weights of
+    the CPU, poses within 1e-4, 2 KNN launches per ICP iteration and 1 for
+    the inlier scoring per detector set."""
+    arrays = _loop_clouds()
+    before = knn_kernel.launches
+    refined, cand, w = _close_both(cuda_device, arrays)
+    assert knn_kernel.launches - before == 2 * (2 * 20 + 1)
+    ref, ref_cand, ref_w = _close_both(torch.device("cpu"), arrays)
+    assert torch.equal(cand.edges.cpu(), ref_cand.edges) and torch.equal(cand.valid.cpu(), ref_cand.valid)
+    assert torch.equal(w.cpu(), ref_w) and bool((w > 0).any())
+    assert float((refined.cpu() - ref).abs().max()) < 1e-4
+
+
+def test_close_loops_repeats_bit_for_bit(cuda_device):
+    """No float atomics on the closure's path: two runs on the card give the
+    same bits."""
+    arrays = _loop_clouds(seed=7, drift=0.03)
+    a = _close_both(cuda_device, arrays)
+    b = _close_both(cuda_device, arrays)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[2], b[2])
+
+
+def test_knn_kernel_at_the_multistart_shape(cuda_device):
+    """The multistart verification's batch at the sensor's size: B = 8
+    candidates x 7 yaw hypotheses, S = T = 19,200 (480x640 at dsratio 4),
+    every target valid."""
+    gen = np.random.default_rng(56)
+    src, tgt = _cloud(gen, (56, 19200, 3), cuda_device), _cloud(gen, (56, 19200, 3), cuda_device)
+    valid = torch.ones((56, 19200), dtype=torch.bool, device=cuda_device)
+    before = knn_kernel.launches
+    d, i = knn(src, tgt, valid)
+    assert knn_kernel.launches == before + 1
+    dp, ip = knn_reference(src, tgt, valid)
+    assert torch.equal(i, ip) and torch.equal(d, dp)
+
+
+def test_float64_loop_closure_raises_on_the_card(cuda_device):
+    """The KNN kernel takes float32 only, and there is no fallback."""
+    from gradslam_tpu_torch.slam import close_loops
+
+    dr, pts, nrm, val = (torch.from_numpy(x).to(cuda_device) for x in _loop_clouds())
+    with pytest.raises(TypeError, match="float32"):
+        close_loops(dr.double(), pts.double(), nrm.double(), val, max_candidates=4, min_separation=5)
+
+
+def test_refinement_on_the_card_matches_the_cpu(cuda_device):
+    """``pose_graph_refine`` and ``ba_refine`` (both solvers) on the card
+    within 1e-4 of the CPU."""
+    from gradslam_tpu_torch.geometry import se3_exp
+    from gradslam_tpu_torch.parallel import PoseGraph, ba_refine, pose_graph_refine
+
+    gen = np.random.default_rng(3)
+    L, M = 12, 400
+    poses = se3_exp(torch.from_numpy(gen.normal(0, 0.2, (L, 6)).astype(np.float32)))
+    poses[0] = torch.eye(4)
+    edges = torch.tensor([(i, i + 1) for i in range(L - 1)] + [(0, L - 1), (2, 9)], dtype=torch.int32)
+    Z = torch.linalg.inv(poses[edges[:, 0].long()]) @ poses[edges[:, 1].long()]
+    Z = se3_exp(torch.from_numpy(gen.normal(0, 0.01, (edges.shape[0], 6)).astype(np.float32))) @ Z
+    g = PoseGraph(poses, edges, Z, torch.ones(edges.shape[0]))
+    got = pose_graph_refine(PoseGraph(*(x.to(cuda_device) for x in g)), num_iters=5)
+    assert float((got.cpu() - pose_graph_refine(g, num_iters=5)).abs().max()) < 1e-4
+    lms = torch.from_numpy(gen.uniform([-1, -1, 2], [1, 1, 4], (M, 3)).astype(np.float32))
+    obs_lm = torch.arange(M).repeat_interleave(4)
+    obs_pose = torch.from_numpy(gen.integers(0, L, M * 4))
+    Tinv = torch.linalg.inv(poses)[obs_pose]
+    obs = (Tinv[:, :3, :3] @ lms[obs_lm][:, :, None])[..., 0] + Tinv[:, :3, 3]
+    args = (poses, lms + 0.01, obs_pose, obs_lm, obs)
+    for solver in ("dense", "pcg"):
+        a = ba_refine(*(x.to(cuda_device) for x in args), num_iters=3, solver=solver)
+        b = ba_refine(*args, num_iters=3, solver=solver)
+        for x, y in zip(a, b):
+            assert float((x.cpu() - y).abs().max()) < 1e-4, solver

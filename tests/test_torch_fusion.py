@@ -150,8 +150,9 @@ def test_alpha_and_gates():
 
 
 def test_unported_paths_raise(mid_sequence):
-    """Block gating and labels run now; loop closure is the one path left
-    that raises, and ``block_size`` with ``assoc_window`` is refused."""
+    """Block gating, labels and loop closure run now; no path raises for
+    being unported, a bad loop-closure mode is refused, and ``block_size``
+    with ``assoc_window`` is refused."""
     ms = mid_sequence
     tstate = map_state_from_numpy(ms["data"], ms["num_points"], device="cpu")
     args = _args(ms, lambda x: torch.from_numpy(np.array(x)))
@@ -159,7 +160,9 @@ def test_unported_paths_raise(mid_sequence):
     for kw in (dict(block_size=256), dict(visible_capacity=64), dict(frame_labels=labels)):
         out = TF.fusion_update_compact(tstate, *args, 0.05, 0.9, 0.6, 100, **kw)
         assert (out.num_points >= tstate.num_points).all()
-    with pytest.raises(NotImplementedError):
-        PointFusion(loop_closure="pose", device="cpu")
+    for mode in ("pose", "appearance", "both"):
+        assert PointFusion(loop_closure=mode, device="cpu").loop_closure == mode
+    with pytest.raises(ValueError, match="loop_closure"):
+        PointFusion(loop_closure="all", device="cpu")
     with pytest.raises(ValueError):
         PointFusion(block_size=256, assoc_window=2 * H * W, device="cpu")

@@ -153,8 +153,12 @@ class TestManagedLifecycle:
             TL.slam_sequence_managed(colors, depths, K, poses, gt, 1000, watermark=0.0)
         with pytest.raises(ValueError, match="loop_closure"):
             TL.slam_sequence_managed(colors, depths, K, poses, gt, 1000, loop_closure="nope")
-        with pytest.raises(NotImplementedError, match="A12"):
-            TL.slam_sequence_managed(colors, depths, K, poses, gt, 1000, loop_closure="both")
+        # every mode runs (ported); closure leaves a gt trajectory finite and in place
+        H, W = colors.shape[2:4]
+        _, closed = TL.slam_sequence_managed(colors, depths, K, poses, gt, colors.shape[1] * H * W,
+                                             loop_closure="both",
+                                             loop_closure_kwargs=dict(min_separation=2, max_candidates=2))
+        assert closed.shape == poses.shape and bool(torch.isfinite(closed).all())
         with pytest.raises(ValueError, match="gt odometry"):
             TL.slam_sequence_managed(colors, depths, K, None, gt, 1000)
 

@@ -101,8 +101,9 @@ def test_icpslam_aggregate_and_options(clip):
     valid = (clip["depths"][:1, :2, ..., 0] > 0).sum()
     assert pcs.num_points_per_pointcloud.tolist() == [valid]
     assert PointFusion(block_size=256, device="cpu").opts.block_size == 256  # ported
-    with pytest.raises(NotImplementedError):
-        PointFusion(loop_closure="pose", device="cpu")
+    assert PointFusion(loop_closure="pose", device="cpu").loop_closure == "pose"  # ported
+    with pytest.raises(ValueError, match="loop_closure"):
+        PointFusion(loop_closure="bogus", device="cpu")
     with pytest.raises(ValueError):
         PointFusion(odom="bogus", device="cpu")
     PointFusion(merge_window=0, device="cpu")  # accepted: a TPU layout option
