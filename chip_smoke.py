@@ -96,14 +96,33 @@ full-arena fusion) and ``PointFusion(assoc='projective', assoc_window=...)``
      and ``pose_graph_refine`` at L=256 on the card against the CPU, ms
      per Gauss-Newton iteration, and the gradient of
      ``examples/train_loopclosure_ate.py``'s loss on the card against the
-     CPU.
+     CPU;
+ 22.-27. the parallel package, its ranks started as processes of this
+     script (``--rank``), each on the one card, each phase timed: 22. one
+     NCCL rank, ``sharded_slam`` on a 1x1 mesh and its assembly through
+     NCCL bit-equal to ``slam_sequence`` (golden clip); 23. four gloo ranks,
+     ``sharded_slam`` over ``make_mesh(data=2, map_=2)`` at the ScanNet
+     geometry (614,400-row shards of the 1,228,800-row arena) and over a
+     4-shard map of 2*H*W rows whose live rows reach all four shards, each
+     bit-equal to one process on each data group's batch, the differing
+     elements printed, and against one process's run of the whole batch
+     (on the card a batch element's reductions depend on the batch); 24.
+     ``pipelined_slam_sequence`` on two gloo ranks, KNN and projective,
+     bit-equal to ``slam_sequence``; 25. ``sequence_parallel_slam`` (4
+     chunks) on the card against the CPU and ``merge_chunk_maps`` with and
+     without ``dedup_voxel``; 26. the sharded BA ('dense', 'pcg') and pose
+     graph on two gloo ranks against one device within 1e-4; 27.
+     ``sharded_train_step`` over ``make_mesh(data=2)`` against one
+     process's steps. Every KNN and winner call of every rank is held bit
+     for bit against its plain version.
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after: the KNN kernel 40 times per frame step on the KNN path and
 never on the projective one, 2 per ICP iteration and 1 more per detector
 set in a loop closure, the winner kernel once per fusion step on both, once
 per compaction and once per accepted closure of the managed run (the
-refresh's selection), neither in a backward. Any failed check raises. The line before the
+refresh's selection), neither in a backward; in phases 22-27 each
+rank counts its own launches. Any failed check raises. The line before the
 last is a JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": ...}``. Needs one card; exits non-zero without one.
 """
@@ -2109,6 +2128,25 @@ def _ba_problem(L, M, seed=0):
     return poses, lms0.astype(np.float32), obs_pose, obs_lm, pc.astype(np.float32)
 
 
+def _pose_graph_problem(L=256, loops=64):
+    """A keyframe chain with loop edges on the CPU: (PoseGraph, ground truth)."""
+    from gradslam_tpu_torch.geometry import se3_exp
+    from gradslam_tpu_torch.parallel import PoseGraph
+
+    rng = np.random.default_rng(1)
+    xi = torch.from_numpy(rng.normal(0, 0.05, (L, 6)).astype(np.float32))
+    gt = [torch.eye(4)]
+    for k in range(1, L):
+        gt.append(gt[-1] @ se3_exp(xi[k]))
+    gt = torch.stack(gt)
+    edges = [(i, i + 1) for i in range(L - 1)] + [tuple(sorted(rng.choice(L, 2, replace=False))) for _ in range(loops)]
+    edges = torch.tensor(edges, dtype=torch.int32)
+    Z = torch.linalg.inv(gt[edges[:, 0].long()]) @ gt[edges[:, 1].long()]
+    init = se3_exp(torch.from_numpy(rng.normal(0, 0.02, (L, 6)).astype(np.float32))) @ gt
+    init[0] = gt[0]
+    return PoseGraph(init, edges, Z, torch.ones(edges.shape[0])), gt
+
+
 def refinement_phase(dev, ba_iters=8, cg_iters=64):
     """Phase 21: ``ba_refine`` with both solvers at ``tools/bench_ba.py``'s
     problems on the card (ms per Gauss-Newton iteration), dense against
@@ -2148,20 +2186,8 @@ def refinement_phase(dev, ba_iters=8, cg_iters=64):
                  f"{res['dense'][2]:.3f} pcg {res['pcg'][2]:.3f} (cg {cg_iters}); one iteration card vs cpu dense "
                  f"{res['dense'][1]} pcg {res['pcg'][1]}; dense vs pcg after {ba_iters}: {gap}")
 
-    # a 256-keyframe chain with loop edges
-    rng = np.random.default_rng(1)
-    L = 256
-    xi = torch.from_numpy(rng.normal(0, 0.05, (L, 6)).astype(np.float32))
-    gt = [torch.eye(4)]
-    for k in range(1, L):
-        gt.append(gt[-1] @ se3_exp(xi[k]))
-    gt = torch.stack(gt)
-    edges = [(i, i + 1) for i in range(L - 1)] + [tuple(sorted(rng.choice(L, 2, replace=False))) for _ in range(64)]
-    edges = torch.tensor(edges, dtype=torch.int32)
-    Z = torch.linalg.inv(gt[edges[:, 0].long()]) @ gt[edges[:, 1].long()]
-    init = se3_exp(torch.from_numpy(rng.normal(0, 0.02, (L, 6)).astype(np.float32))) @ gt
-    init[0] = gt[0]
-    g = PoseGraph(init, edges, Z, torch.ones(edges.shape[0]))
+    g, gt = _pose_graph_problem()
+    L, edges = g.poses.shape[0], g.edges
     ref = pose_graph_refine(g, num_iters=10)
     card_g = PoseGraph(*(x.to(dev) for x in g))
     got = pose_graph_refine(card_g, num_iters=10)
@@ -2215,6 +2241,500 @@ def refinement_phase(dev, ba_iters=8, cg_iters=64):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 22.-27. the parallel package: ranks that share the card
+# ---------------------------------------------------------------------------
+
+RANK_TIMEOUT_S = {"nccl": 240, "map": 420, "pair": 420}
+PIPE_FRAMES = 10  # the golden clip cycled to L=10, phase 3's input
+SEQPAR_CHUNKS, SEQPAR_L = 4, 9
+MAP4_FRAMES = 8  # the 4-shard run: its live rows reach all four shards (the arena nearly full)
+SHARDED_BA = ((64, 10_000), (256, 100_000))  # the smallest and the largest of phase 21's problems
+SHARDED_BA_ITERS = 4
+# the loss on the clip's own frames is ~5.7e-8 m^2: a step at a smaller lr
+# leaves the scale at 1.0 in float32
+TRAIN_LR = 1e3
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _start_ranks(phase: str, world: int):
+    """Starts ``world`` ranks of ``phase`` (``chip_smoke.py --rank``), each on
+    card 0, each writing its output to ``rank<r>.log`` in a new directory;
+    :func:`_wait_ranks` collects them, :func:`_stop_ranks` ends them."""
+    import tempfile
+
+    out = pathlib.Path(tempfile.mkdtemp(prefix=f"chip_smoke_{phase}_"))
+    port = _free_port()
+    procs = []
+    for r in range(world):
+        with open(out / f"rank{r}.log", "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--rank", phase, str(r), str(world), str(port), str(out)],
+                stdout=log, stderr=subprocess.STDOUT, cwd=ROOT,
+            ))
+    return phase, procs, out, time.monotonic() + RANK_TIMEOUT_S[phase], time.perf_counter()
+
+
+def _stop_ranks(started):
+    """Kills the ranks still running and removes their directory."""
+    import shutil
+
+    _, procs, out, _, _ = started
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+    shutil.rmtree(out, ignore_errors=True)
+
+
+def _wait_ranks(started):
+    """(the ranks' JSON results in rank order, the directory they wrote),
+    their logs printed. A rank's nonzero exit stops the others at once and
+    fails the phase, as does the phase's timeout."""
+    phase, procs, out, deadline, _ = started
+    failed = None
+    while any(p.poll() is None for p in procs):
+        bad = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)]
+        if bad or time.monotonic() > deadline:
+            failed = f"rank {bad[0]} exited with {procs[bad[0]].returncode}" if bad else \
+                f"the ranks did not finish within {RANK_TIMEOUT_S[phase]} s"
+            break
+        time.sleep(0.2)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+    for r, p in enumerate(procs):
+        for line in (out / f"rank{r}.log").read_text().strip().splitlines():
+            _log(f"  [{phase} rank {r}] {line}")
+        if failed is None and p.returncode != 0:
+            failed = f"rank {r} exited with {p.returncode}"
+    if failed is not None:
+        _stop_ranks(started)
+        raise AssertionError(f"{phase}: {failed}")
+    return [json.loads((out / f"rank{r}.json").read_text()) for r in range(len(procs))], out
+
+
+def _recorded(fn):
+    """``fn()`` with every kernel's launch count set to 0 just before it
+    and every KNN and winner call recorded; returns (its result, seconds,
+    launches, KNN calls, winner calls)."""
+    from gradslam_tpu_torch.odometry import icputils
+    from gradslam_tpu_torch.slam import fusionutils
+
+    knn_calls, winner_calls = [], []
+    restore = [_recording(icputils, "knn", knn_calls), _recording(fusionutils, "pixel_winner", winner_calls, True)]
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        for r in restore:
+            r()
+    return out, time.perf_counter() - t0, _launches(), knn_calls, winner_calls
+
+
+def _check_calls(phase, launches, knn_calls, winner_calls):
+    """One launch per recorded call, and every call bit-equal to its plain
+    version."""
+    from gradslam_tpu_torch.ops import pixel_winner_reference
+
+    _check(launches == {"knn": len(knn_calls), "winner": len(winner_calls)},
+           f"{phase}: launches {launches} for {len(knn_calls)} KNN and {len(winner_calls)} winner calls")
+    _check_knn_calls(phase, knn_calls)
+    for n, (args, out) in enumerate(winner_calls):
+        _check(torch.equal(out, pixel_winner_reference(*args)), f"{phase}: winner call {n} differs from the plain version")
+
+
+def _record(res, key, seconds, launches, knn_calls, winner_calls):
+    _check_calls(key, launches, knn_calls, winner_calls)
+    res[key] = {"seconds": seconds, "launches": launches}
+
+
+def _diff(a, b):
+    """(count of differing elements, max |a - b|) of two tensors."""
+    a, b = torch.as_tensor(a).cpu(), torch.as_tensor(b).cpu()
+    return int((a != b).sum()), float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+def _fusion_opts(dev, **kw):
+    from gradslam_tpu_torch import PointFusion
+
+    return PointFusion(device=dev, **kw).opts
+
+
+def _on(dev, *arrays):
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in arrays)
+
+
+def _rank_nccl(dev, rank, res, out):
+    """Phase 22 (one NCCL rank): ``sharded_slam`` on a 1x1 mesh, the
+    assembly through NCCL, against ``slam_sequence`` bit for bit."""
+    from gradslam_tpu_torch.parallel import make_mesh, sharded_slam, unshard_batch, unshard_map_state
+    from gradslam_tpu_torch.slam import slam_sequence
+
+    mesh = make_mesh(data=1, map_=1, device=dev)
+    rgb, dep, K = _on(dev, *_golden_clip(PIPE_FRAMES))
+    B, L, H, W = rgb.shape[:4]
+    opts, cap = _fusion_opts(dev), L * H * W
+    (m, p), *rec = _recorded(lambda: sharded_slam(mesh, rgb, dep, K, None, opts, cap))
+    _record(res, "sharded", *rec)
+    g, pg = unshard_map_state(mesh, m), unshard_batch(mesh, p)
+    m1, p1 = slam_sequence(rgb, dep, K, None, opts, cap)
+    res["data_diff"], res["poses_diff"] = _diff(g.data, m1.data), _diff(pg, p1)
+    res["num_points"], res["ref_num_points"] = g.num_points.tolist(), m1.num_points.tolist()
+
+
+def _rank_map(dev, rank, res, out):
+    """Phase 23 (four gloo ranks): ``sharded_slam`` at the ScanNet geometry
+    over ``make_mesh(data=2, map_=2)``, and over a 4-shard map of a
+    2*H*W-row arena on the first ``MAP4_FRAMES`` frames, whose live rows
+    span all four shards; rank 0 writes the assembled arenas and poses."""
+    from gradslam_tpu_torch.parallel import make_mesh, sharded_slam, unshard_batch, unshard_map_state
+
+    rgb, dep, K = _on(dev, *_scannet_clip(16))
+    B, L, H, W = rgb.shape[:4]
+    opts = _fusion_opts(dev)
+    for key, (data, map_), cap, frames in (("map2", (2, 2), L * H * W, L), ("map4", (1, 4), 2 * H * W, MAP4_FRAMES)):
+        mesh = make_mesh(data=data, map_=map_, device=dev)
+        args = (rgb[:, :frames], dep[:, :frames], K, None, opts, cap)
+        (m, p), *rec = _recorded(lambda: sharded_slam(mesh, *args))
+        _record(res, key, *rec)
+        res[key]["shard_shape"] = list(m.data.shape)
+        res[key]["shard_bytes"] = m.data.numel() * m.data.element_size()
+        g, pg = unshard_map_state(mesh, m), unshard_batch(mesh, p)
+        if rank == 0:
+            for name, x in (("data", g.data), ("num_points", g.num_points), ("poses", pg)):
+                np.save(out / f"{key}_{name}.npy", x.cpu().numpy())
+
+
+def _rank_pipeline(dev, rank, res):
+    """Phase 24: ``pipelined_slam_sequence`` on the golden clip, KNN and
+    projective association; rank 1 holds it against ``slam_sequence``."""
+    from gradslam_tpu_torch.parallel import pipeline_mesh, pipelined_slam_sequence
+    from gradslam_tpu_torch.slam import slam_sequence
+
+    pm = pipeline_mesh(device=dev)
+    rgb, dep, K = _on(dev, *_golden_clip(PIPE_FRAMES))
+    B, L, H, W = rgb.shape[:4]
+    for assoc in ("knn", "projective"):
+        opts = _fusion_opts(dev, assoc=assoc)
+        key = f"pipeline {assoc}"
+        (m, p), *rec = _recorded(lambda: pipelined_slam_sequence(rgb, dep, K, opts, L * H * W, mesh=pm))
+        _record(res, key, *rec)
+        if rank == 1:
+            m1, p1 = slam_sequence(rgb, dep, K, None, opts, L * H * W)
+            res[key].update(data_diff=_diff(m.data, m1.data), poses_diff=_diff(p, p1),
+                            num_points=m.num_points.tolist(), ref_num_points=m1.num_points.tolist())
+
+
+def _rank_refine(dev, rank, res):
+    """Phase 26: the sharded BA ('dense', 'pcg') at phase 21's smallest and
+    largest problems and the sharded pose graph at L=256, over
+    ``make_mesh(data=2)``; rank 0 holds them against one device's."""
+    from gradslam_tpu_torch.parallel import (
+        PoseGraph,
+        ba_refine,
+        ba_refine_sharded,
+        make_mesh,
+        pose_graph_refine,
+        pose_graph_refine_sharded,
+    )
+
+    mesh = make_mesh(data=2, device=dev)
+    for L, M in SHARDED_BA:
+        args = _on(dev, *_ba_problem(L, M))
+        for solver in ("dense", "pcg"):
+            key = f"ba L={L} M={M} {solver}"
+            kw = dict(num_iters=SHARDED_BA_ITERS, solver=solver)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = ba_refine_sharded(*args, mesh, **kw)
+            torch.cuda.synchronize()
+            res[key] = {"seconds": time.perf_counter() - t0}
+            if rank == 0:
+                ref = ba_refine(*args, max_obs_per_landmark=BA_OBS_PER_LM, **kw)
+                res[key]["err"] = max(_diff(a, b)[1] for a, b in zip(got, ref))
+    g, _ = _pose_graph_problem()
+    g = PoseGraph(*(x.to(dev) for x in g))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = pose_graph_refine_sharded(g, mesh, num_iters=10)
+    torch.cuda.synchronize()
+    res["pose graph L=256"] = {"seconds": time.perf_counter() - t0}
+    if rank == 0:
+        res["pose graph L=256"]["err"] = _diff(got, pose_graph_refine(g, num_iters=10))[1]
+
+
+def _rank_train(dev, rank, res):
+    """Phase 27: two ``sharded_train_step`` steps over ``make_mesh(data=2)``
+    at phase 8's inputs; rank 0 holds them against one process's steps."""
+    from gradslam_tpu_torch.parallel import DepthCalibParams, make_mesh, sharded_train_step, slam_loss
+
+    mesh = make_mesh(data=2, device=dev)
+    colors, depths, K = _golden_clip(3)
+    B, L, H, W = colors.shape[:4]
+    rgb, _, obs, Kt = _calib_inputs(colors, depths, K, dev)
+    gt = torch.from_numpy(_cycled_poses(L)).to(dev)
+    opts, cap = _fusion_opts(dev), L * H * W
+    step = sharded_train_step(mesh, opts, cap, lr=TRAIN_LR)
+    params, ref = DepthCalibParams(device=dev), DepthCalibParams(device=dev)
+    out = {"loss": [], "scale": [], "bias": [], "ref_loss": [], "ref_scale": [], "ref_bias": []}
+    for i in range(2):
+        (params, loss), *rec = _recorded(lambda: step(params, rgb, obs, Kt, gt))
+        _check_calls(f"train step {i}", *rec[1:])
+        out["loss"].append(loss.item())
+        out["scale"].append(params.scale.item())
+        out["bias"].append(params.bias.item())
+        if rank == 0:
+            ref_loss = slam_loss(ref, rgb, obs, Kt, gt, opts, cap)
+            gs, gb = torch.autograd.grad(ref_loss, [ref.scale, ref.bias])
+            with torch.no_grad():
+                ref.scale -= TRAIN_LR * gs
+                ref.bias -= TRAIN_LR * gb
+            out["ref_loss"].append(ref_loss.item())
+            out["ref_scale"].append(ref.scale.item())
+            out["ref_bias"].append(ref.bias.item())
+    res["train step"] = dict(out, seconds=rec[0], launches=rec[1])
+
+
+def _rank_pair(dev, rank, res, out):
+    """Phases 24, 26 and 27 on one pair of gloo ranks."""
+    _rank_pipeline(dev, rank, res)
+    _rank_refine(dev, rank, res)
+    _rank_train(dev, rank, res)
+
+
+RANK_PHASES = {"nccl": _rank_nccl, "map": _rank_map, "pair": _rank_pair}
+
+
+def _rank_main(argv) -> int:
+    """One rank of a phase: ``chip_smoke.py --rank <phase> <rank> <world>
+    <port> <dir>``, on card 0, NCCL for the 'nccl' phase and gloo for the
+    others; writes ``<dir>/rank<rank>.json``."""
+    phase, rank, world, port, out = argv[0], int(argv[1]), int(argv[2]), argv[3], pathlib.Path(argv[4])
+    sys.path.insert(0, str(ROOT))
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    from gradslam_tpu_torch.parallel import host_summary, initialize_multihost
+
+    initialize_multihost(f"localhost:{port}", num_processes=world, process_id=rank,
+                         backend="nccl" if phase == "nccl" else "gloo")
+    res = {"summary": host_summary()}
+    _log(res["summary"])
+    try:
+        RANK_PHASES[phase](dev, rank, res, out)
+    finally:
+        torch.distributed.destroy_process_group()
+    (out / f"rank{rank}.json").write_text(json.dumps(res))
+    return 0
+
+
+def nccl_phase(smi, started):
+    """Phase 22: one NCCL rank, started by ``_start_ranks("nccl", 1)``;
+    ``sharded_slam(make_mesh(1, 1))`` on the golden clip bit-equal to
+    ``slam_sequence``."""
+    (r,), _ = _wait_ranks(started)
+    secs = time.perf_counter() - started[-1]
+    L = PIPE_FRAMES
+    _log(f"nccl world 1 ({r['summary']}): golden B=2 L={L} sharded_slam vs slam_sequence: differing elements "
+         f"arena {r['data_diff']}, poses {r['poses_diff']}; num_points {r['num_points']} vs {r['ref_num_points']}; "
+         f"run {r['sharded']['seconds']:.3f} s, launches {r['sharded']['launches']}; phase {secs:.1f} s on {smi}")
+    _check(r["data_diff"][0] == 0 and r["poses_diff"][0] == 0 and r["num_points"] == r["ref_num_points"],
+           "nccl: sharded_slam differs from slam_sequence")
+    _check_launches("nccl sharded", r["sharded"]["launches"], {"knn": (L - 1) * 40, "winner": L})
+    return {"nccl world 1 golden": r["sharded"]["launches"]}
+
+
+def _batch_invariance(dev, N=4800):
+    """Whether the card gives a batch element the same bits in a batch of 2
+    as alone, on random inputs: torch's batched sum over points (it splits
+    its reduction by the count of its outputs), and the port's sums of ICP,
+    which sum each element on its own. Returns {piece: (differing elements,
+    max |d|)}."""
+    from gradslam_tpu_torch.odometry.icputils import _sum_each, solve_linear_system
+
+    g = torch.Generator().manual_seed(0)
+    A, b, w = (x.to(dev) for x in (torch.randn(2, N, 6, generator=g), torch.randn(2, N, 1, generator=g),
+                                   torch.rand(2, N, generator=g)))
+    alone = lambda f: torch.cat([f(i) for i in range(2)])
+    outer = lambda x: x[..., :, :, None] * x[..., :, None, :]
+    return {
+        "torch point sums": _diff(outer(A).sum(-3), alone(lambda i: outer(A[i : i + 1]).sum(-3))),
+        "port point sums": _diff(_sum_each(outer(A), -3), alone(lambda i: _sum_each(outer(A[i : i + 1]), -3))),
+        "port error sums": _diff(_sum_each(w * b[..., 0], -1),
+                                 alone(lambda i: _sum_each(w[i : i + 1] * b[i : i + 1, :, 0], -1))),
+        "solve_linear_system": _diff(solve_linear_system(A, b, 1e-8, weights=w),
+                                     alone(lambda i: solve_linear_system(A[i : i + 1], b[i : i + 1], 1e-8,
+                                                                         weights=w[i : i + 1]))),
+    }
+
+
+def map_phase(dev, smi):
+    """Phase 23: four gloo ranks on the card, ``sharded_slam`` at the
+    ScanNet geometry over (data=2, map=2), CAP=L*H*W, and over a 4-shard
+    map of 2*H*W rows (data=1) on the first ``MAP4_FRAMES`` frames, each
+    bit for bit against one process's ``slam_sequence`` on each data group's
+    batch slice: the same batch that group's ranks run. The (data=2, map=2)
+    run also against one process's run of the whole batch at once:
+    ``num_points`` equal, arena and poses within 1e-4 (ICP sums each batch
+    element on its own, so the batch's split should not show: see
+    ``_batch_invariance``)."""
+    import shutil
+
+    from gradslam_tpu_torch.slam import slam_sequence
+
+    t0 = time.perf_counter()
+    started = _start_ranks("map", 4)
+    try:  # the references run while the ranks start
+        rgb, dep, K = _on(dev, *_scannet_clip(16))
+        B, L, H, W = rgb.shape[:4]
+        opts = _fusion_opts(dev)
+        configs = (("map2", L * H * W, 2, L), ("map4", 2 * H * W, 1, MAP4_FRAMES))
+        refs = {}
+        for key, cap, groups, frames in configs:
+            b = B // groups
+            runs = [slam_sequence(rgb[i : i + b, :frames], dep[i : i + b, :frames], K[i : i + b], None, opts, cap)
+                    for i in range(0, B, b)]
+            refs[key] = (torch.cat([m.data for m, _ in runs]), torch.cat([m.num_points for m, _ in runs]).tolist(),
+                         torch.cat([p for _, p in runs]))
+        whole = slam_sequence(rgb, dep, K, None, opts, L * H * W)
+        invariance = _batch_invariance(dev)
+    except BaseException:
+        _stop_ranks(started)
+        raise
+    results, out = _wait_ranks(started)
+    secs = time.perf_counter() - t0
+    launches = {}
+    try:
+        for key, cap, groups, frames in configs:
+            b = B // groups
+            ref_data, ref_npts, ref_poses = refs[key]
+            data, npts, poses = (np.load(out / f"{key}_{n}.npy") for n in ("data", "num_points", "poses"))
+            dd, pd = _diff(data, ref_data), _diff(poses, ref_poses)
+            per = [r[key]["launches"] for r in results]
+            launches[f"sharded scannet {key} per rank"] = per[0]
+            launches[f"sharded scannet {key} all ranks"] = {k: sum(p[k] for p in per) for k in per[0]}
+            shapes = [r[key]["shard_shape"] for r in results]
+            _log(f"sharded scannet {key} B={B} L={frames} {H}x{W} CAP={cap}: shards {shapes} "
+                 f"({results[0][key]['shard_bytes']} bytes each); num_points {npts.tolist()} vs one process on each "
+                 f"data group's batch {ref_npts}; differing elements arena {dd[0]} of {data.size} (max |d| {dd[1]!r}), "
+                 f"poses {pd[0]} (max |d| {pd[1]!r}); run {[round(r[key]['seconds'], 3) for r in results]} s a rank; "
+                 f"launches per rank {per}")
+            _check(all(s == [b, cap // (4 // groups), 12] for s in shapes), f"{key}: shard shapes {shapes}")
+            _check(npts.tolist() == ref_npts, f"{key}: num_points {npts} vs {ref_npts}")
+            _check(dd[0] == 0 and pd[0] == 0, f"{key}: arena {dd}, poses {pd} against one process, not bit-equal")
+            for p in per:
+                _check_launches(f"sharded scannet {key}", p, {"knn": (frames - 1) * 40, "winner": frames})
+            if groups > 1:
+                m2, p2 = whole
+                wd, wp = _diff(data, m2.data), _diff(poses, p2)
+                _log(f"sharded scannet {key} against one process's run of the whole batch (B={B}): num_points "
+                     f"{npts.tolist()} vs {m2.num_points.tolist()}, differing elements arena {wd[0]} (max |d| "
+                     f"{wd[1]!r}), poses {wp[0]} (max |d| {wp[1]!r}); the card's batch of 2 against each element "
+                     f"alone (differing elements, max |d|): {invariance}")
+                _check(npts.tolist() == m2.num_points.tolist() and wd[1] <= 1e-4 and wp[1] <= 1e-4,
+                       f"{key}: num_points {npts} vs {m2.num_points}, arena {wd}, poses {wp} against one process "
+                       f"on the whole batch")
+                _check(all(invariance[k][0] == 0 for k in invariance if k.startswith(("port", "solve"))),
+                       f"the port's ICP sums depend on the batch: {invariance}")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    _log(f"sharded scannet: phase {secs:.1f} s (the ranks' start included) on {smi}")
+    return launches
+
+
+def pair_phases(smi, started):
+    """Phases 24, 26 and 27: one pair of gloo ranks on the card, started by
+    ``_start_ranks("pair", 2)``."""
+    (r0, r1), _ = _wait_ranks(started)
+    secs = time.perf_counter() - started[-1]
+    launches = {}
+    L = PIPE_FRAMES
+    for assoc in ("knn", "projective"):
+        key = f"pipeline {assoc}"
+        r = r1[key]
+        _log(f"pipeline golden {assoc} B=2 L={L}: against slam_sequence on rank 1, differing elements arena "
+             f"{r['data_diff']}, poses {r['poses_diff']}; num_points {r['num_points']} vs {r['ref_num_points']}; "
+             f"run {r0[key]['seconds']:.3f} / {r['seconds']:.3f} s; launches rank 0 {r0[key]['launches']}, rank 1 "
+             f"{r['launches']}")
+        _check(r["num_points"] == r["ref_num_points"] and r["poses_diff"][1] <= 1e-6 and r["data_diff"][1] <= 1e-4,
+               f"pipeline {assoc}: against slam_sequence {r}")
+        _check_launches(f"pipeline {assoc} rank 0", r0[key]["launches"], {"knn": 0, "winner": 0})
+        _check_launches(f"pipeline {assoc} rank 1", r["launches"],
+                        {"knn": (L - 1) * 40 if assoc == "knn" else 0, "winner": L})
+        launches[f"pipeline golden {assoc} (rank 1; rank 0 none)"] = r["launches"]
+    for L_, M in SHARDED_BA:
+        for solver in ("dense", "pcg"):
+            key = f"ba L={L_} M={M} {solver}"
+            _log(f"sharded {key}, 2 ranks, {SHARDED_BA_ITERS} iterations: {r0[key]['seconds'] * 1e3:.3f} ms (host "
+                 f"clock), against one device {r0[key]['err']!r}")
+            _check(r0[key]["err"] <= 1e-4, f"sharded {key}: against one device {r0[key]['err']}")
+    key = "pose graph L=256"
+    _log(f"sharded {key}, 2 ranks, 10 iterations: {r0[key]['seconds'] * 1e3:.3f} ms (host clock, the process's first "
+         f"pose graph), against one device {r0[key]['err']!r}")
+    _check(r0[key]["err"] <= 1e-4, f"sharded pose graph: against one device {r0[key]['err']}")
+    t = r0["train step"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(t["loss"], t["ref_loss"]))
+    # the parameters' moves from their start (1, 0), relative
+    step_err = max(abs(a - b) / max(abs(b - start), 1e-12)
+                   for k, start in (("scale", 1.0), ("bias", 0.0)) for a, b in zip(t[k], t[f"ref_{k}"]))
+    _log(f"sharded_train_step golden B=2 L=3, 2 steps, lr {TRAIN_LR}: loss {t['loss']} vs one process "
+         f"{t['ref_loss']}, scale {t['scale']} vs {t['ref_scale']}, bias {t['bias']} vs {t['ref_bias']}; relative "
+         f"gaps loss {loss_err!r}, parameter moves {step_err!r}; launches per rank (second step) {t['launches']}")
+    _check(loss_err <= 1e-4 and step_err <= 1e-3, f"sharded_train_step: loss {loss_err}, parameter moves {step_err}")
+    _check(r1["train step"]["scale"] == t["scale"] and r1["train step"]["bias"] == t["bias"],
+           "sharded_train_step: the ranks' parameters differ")
+    _check_launches("train step", t["launches"], {"knn": 2 * 40, "winner": 3})
+    launches["sharded_train_step golden L=3 per rank"] = t["launches"]
+    _log(f"pair phases (pipeline, sharded refinement, train step): {secs:.1f} s (the ranks' start included) on {smi}")
+    return launches
+
+
+def seqpar_phase(dev, smi):
+    """Phase 25: ``sequence_parallel_slam`` (4 chunks) on the golden clip's
+    first sequence cycled to ``SEQPAR_L`` frames, in one process on the card
+    against the CPU, then ``merge_chunk_maps`` with and without
+    ``dedup_voxel``."""
+    from gradslam_tpu_torch.parallel import merge_chunk_maps, sequence_parallel_slam
+
+    colors, depths, K = (x[:1] for x in _golden_clip(SEQPAR_L))
+    opts = _fusion_opts(dev)
+    t0 = time.perf_counter()
+    run = lambda d: sequence_parallel_slam(*_on(d, colors, depths, K), opts, n_chunks=SEQPAR_CHUNKS)
+    card, secs, launches, knn_calls, winner_calls = _recorded(lambda: run(dev))
+    _check_calls("seqpar", launches, knn_calls, winner_calls)
+    cpu = run(torch.device("cpu"))
+    pose_err = _diff(card.poses, cpu.poses)[1]
+    merged = {}
+    for voxel in (None, 0.05):
+        merged[voxel] = [merge_chunk_maps(r, 1, dedup_voxel=voxel) for r in (card, cpu)]
+    n = {v: [m.num_points_per_pointcloud.tolist() for m in ms] for v, ms in merged.items()}
+    cc = [float(merged[v][0].features_padded.sum()) for v in (None, 0.05)]
+    _log(f"seqpar golden B=1 L={SEQPAR_L} {SEQPAR_CHUNKS} chunks of {card.chunk_len}: card {secs:.3f} s, poses card vs "
+         f"cpu {pose_err!r}; merged points card / cpu {n[None]}, with 5 cm voxels {n[0.05]}; card ccount sum "
+         f"{cc[0]!r} -> {cc[1]!r}; launches {launches}; phase {time.perf_counter() - t0:.1f} s on {smi}")
+    _check(pose_err <= 1e-4, f"seqpar: poses card vs cpu {pose_err}")
+    # a card and a CPU run part where one fusion gate decision goes the
+    # other way on a last-bit difference (ROADMAP Queue C): a few points
+    _check(all(abs(a - b) <= 1e-3 * b for a, b in zip(*n[None])), f"seqpar: merged points card vs cpu {n[None]}")
+    _check(all(0 < a < b for a, b in zip(n[0.05][0], n[None][0])), f"seqpar: voxel merge {n}")
+    _check(abs(cc[1] - cc[0]) <= 1e-4 * abs(cc[0]), f"seqpar: ccount {cc}")
+    _check(all(abs(a - b) <= 0.01 * b for a, b in zip(n[0.05][0], n[0.05][1])), f"seqpar: voxel merge card vs cpu {n}")
+    # the chunks fold into the batch: one run of chunk_len frames
+    _check_launches("seqpar", launches, {"knn": (card.chunk_len - 1) * 40, "winner": card.chunk_len})
+    return {"seqpar golden 4 chunks": launches}
+
+
 def _build_kernels():
     """Builds every kernel's source at once (one nvcc each) and loads them."""
     kernels = _kernels()
@@ -2228,6 +2748,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--rank"]:
+        return _rank_main(sys.argv[2:])
     sys.path.insert(0, str(ROOT))
 
     smi = subprocess.run(
@@ -2274,6 +2796,17 @@ def main() -> int:
     entries["knn"]["other_shapes"].update(timings)
     by_path["managed golden + closure"] = managed_closure_phase(dev)
     by_path["train_loopclosure_ate loss"] = refinement_phase(dev)
+    # phases 22, 24, 26 and 27 run in their own ranks while this process
+    # runs phase 25; phase 23's four ranks run alone after them
+    started = [_start_ranks("nccl", 1), _start_ranks("pair", 2)]
+    try:
+        by_path.update(seqpar_phase(dev, smi))
+        by_path.update(nccl_phase(smi, started[0]))
+        by_path.update(pair_phases(smi, started[1]))
+    finally:
+        for s in started:
+            _stop_ranks(s)
+    by_path.update(map_phase(dev, smi))
     for name, entry in entries.items():
         # launches: the ScanNet geometry's run of the path each kernel is
         # timed for; every path's count beside it

@@ -47,6 +47,20 @@ class FramePoints(NamedTuple):
     valid: torch.Tensor  # (B, N) bool
 
 
+def _sum_each(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x.sum(dim)`` over a trailing axis (``dim < 0``), each element of the
+    leading (batch) axes summed on its own. The card's reduce kernel splits
+    a reduction by the count of its outputs, so one batched sum gives an
+    element other bits in a batch of 2 than alone; summed one at a time, a
+    sequence's poses do not depend on the rest of its batch."""
+    n = x.dim() + dim
+    if n == 0:
+        return x.sum(dim)
+    parts = [e.sum(dim) for e in x.reshape((-1,) + x.shape[n:])]
+    out = parts[0][None] if len(parts) == 1 else torch.stack(parts)
+    return out.reshape(x.shape[:n] + out.shape[1:])
+
+
 def solve_linear_system(
     A: torch.Tensor,
     b: torch.Tensor,
@@ -64,8 +78,8 @@ def solve_linear_system(
         does not check for singular systems, so it never waits on the host.
     """
     Aw = A if weights is None else A * weights[..., None]
-    AtA = (Aw[..., :, :, None] * A[..., :, None, :]).sum(-3)
-    Atb = (Aw[..., :, :, None] * b[..., :, None, :]).sum(-3)
+    AtA = _sum_each(Aw[..., :, :, None] * A[..., :, None, :], -3)
+    Atb = _sum_each(Aw[..., :, :, None] * b[..., :, None, :], -3)
     eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
     if torch.is_tensor(damp):
         damp = damp.to(A.dtype)[..., None, None]
@@ -184,10 +198,10 @@ def _icp_common_step(solve_fn, src_pc, damp):
     A, b, w, _ = solve_fn(src_pc)
     xi = solve_linear_system(A, b, damp, weights=w)[..., 0]  # (B, 6)
     residual_transform = se3_exp(xi)
-    err = (w * b[..., 0] ** 2).sum(-1)
+    err = _sum_each(w * b[..., 0] ** 2, -1)
     one_step_pc = transform_pointcloud(src_pc, residual_transform)
     _, b1, w1, _ = solve_fn(one_step_pc)
-    new_err = (w1 * b1[..., 0] ** 2).sum(-1)
+    new_err = _sum_each(w1 * b1[..., 0] ** 2, -1)
     return xi, residual_transform, one_step_pc, err, new_err
 
 
@@ -211,10 +225,10 @@ def _icp_loop(solve_fn, src_pc, initial_transform, numiters, damp):
     for _ in range(numiters):
         xi = solve_linear_system(A, b, damp_v, weights=w)[..., 0]
         rt = se3_exp(xi)
-        err = (w * b[..., 0] ** 2).sum(-1)
+        err = _sum_each(w * b[..., 0] ** 2, -1)
         one_step = transform_pointcloud(src, rt)
         A1, b1, w1, _ = solve_fn(one_step)
-        new_err = (w1 * b1[..., 0] ** 2).sum(-1)
+        new_err = _sum_each(w1 * b1[..., 0] ** 2, -1)
         accept = new_err < err  # (B,)
         acc3 = accept[:, None, None]
         src = torch.where(acc3, one_step, src)

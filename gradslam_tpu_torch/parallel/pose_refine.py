@@ -18,8 +18,13 @@ Every sum of per-edge or per-observation rows into pose, pose-pair or
 landmark bins is a segmented scan over the rows sorted by bin
 (:func:`_segment_sum`): exact float32 products and a fixed order of
 additions, so a run on the card repeats itself bit for bit (a float atomic
-adds in no fixed order, and a float32 matmul may run in TF32). The sharded
-refiners of the JAX package are not part of this module.
+adds in no fixed order, and a float32 matmul may run in TF32).
+
+The sharded refiners split the rows over the ranks of a mesh axis: each rank
+linearizes its edges (:func:`pose_graph_refine_sharded`) or the observations
+of the landmarks it owns (:func:`ba_refine_sharded`), the per-rank normal
+equations are summed with ``all_reduce``, and every rank solves the small
+reduced system.
 """
 
 from __future__ import annotations
@@ -33,7 +38,15 @@ from torch.func import jvp, vmap
 from ..geometry import inverse_transformation, se3_exp, se3_log
 from ..geometry.projutils import matmul_small, matvec
 
-__all__ = ["PoseGraph", "pose_graph_residuals", "pose_graph_refine", "ba_refine"]
+__all__ = [
+    "PoseGraph",
+    "pose_graph_residuals",
+    "pose_graph_refine",
+    "pose_graph_refine_sharded",
+    "ba_refine",
+    "ba_refine_sharded",
+    "partition_observations_by_landmark",
+]
 
 
 class PoseGraph(NamedTuple):
@@ -261,6 +274,18 @@ def _solve_and_update(poses, H, b, damping, anchor_weight):
     return matmul_small(se3_exp(delta), poses)
 
 
+def _pose_graph_iterations(g: PoseGraph, poses, num_iters, damping, anchor_weight, reduce=None):
+    L = poses.shape[1]
+    segs = _graph_segments(L, g.edges)
+    for _ in range(num_iters):
+        r, J_i, J_j = _linearize_edges(poses, g.edges, g.measurements, g.weights)
+        H, b = _assemble_normal_equations(L, segs, r, J_i, J_j)
+        if reduce is not None:
+            H, b = reduce(H), reduce(b)
+        poses = _solve_and_update(poses, H, b, damping, anchor_weight)
+    return poses
+
+
 def pose_graph_refine(
     graph: PoseGraph,
     num_iters: int = 10,
@@ -274,13 +299,58 @@ def pose_graph_refine(
     (B, L, 4, 4), every graph solved in the same batched solve.
     """
     g, single = _batched(graph)
-    L = g.poses.shape[1]
-    segs = _graph_segments(L, g.edges)
-    poses = g.poses
-    for _ in range(num_iters):
-        r, J_i, J_j = _linearize_edges(poses, g.edges, g.measurements, g.weights)
-        H, b = _assemble_normal_equations(L, segs, r, J_i, J_j)
-        poses = _solve_and_update(poses, H, b, damping, anchor_weight)
+    poses = _pose_graph_iterations(g, g.poses, num_iters, damping, anchor_weight)
+    return poses[0] if single else poses
+
+
+def _axis_sum(mesh, axis: str, *inputs):
+    """The ``reduce`` of a sharded refiner: a sum over the mesh axis.
+
+    The sums carry no gradient across the ranks, so an input that needs one
+    raises: :func:`pose_graph_refine` and :func:`ba_refine` differentiate
+    on one device."""
+    if torch.is_grad_enabled() and any(torch.is_tensor(x) and x.requires_grad for x in inputs):
+        raise ValueError("the sharded refiners carry no gradient across ranks: differentiate pose_graph_refine "
+                         "or ba_refine on one device")
+    return lambda x: mesh.all_reduce(x.clone(), axis)
+
+
+def pose_graph_refine_sharded(
+    graph: PoseGraph,
+    mesh,
+    axis: str = "data",
+    num_iters: int = 10,
+    damping: float = 1e-6,
+    anchor_weight: float = 1e6,
+) -> torch.Tensor:
+    """Pose-graph refinement with the edges split over the mesh ``axis``.
+
+    Every rank of the axis passes the same graph. The edges are padded to a
+    multiple of the axis size (identity measurements, weight 0) and rank k
+    takes the k-th contiguous part: it linearizes its edges and assembles
+    their normal equations, ``all_reduce`` sums H (L, 6, L, 6) and b (L, 6)
+    over the axis, and every rank solves the same system. Returns the
+    refined poses, the same on every rank (batched graphs as in
+    :func:`pose_graph_refine`). No gradient crosses the ranks: an input
+    that needs one raises.
+    """
+    g, single = _batched(graph)
+    n = mesh.shape[axis]
+    E = g.edges.shape[1]
+    pad = (-E) % n
+    if pad:
+        B = g.edges.shape[0]
+        eye = torch.eye(4, dtype=g.measurements.dtype, device=g.measurements.device).expand(B, pad, 4, 4)
+        g = PoseGraph(
+            g.poses,
+            torch.cat([g.edges, g.edges.new_zeros((B, pad, 2))], dim=1),
+            torch.cat([g.measurements, eye], dim=1),
+            torch.cat([g.weights, g.weights.new_zeros((B, pad))], dim=1),
+        )
+    part = (E + pad) // n
+    k = mesh.index(axis)
+    mine = PoseGraph(g.poses, *(x[:, k * part : (k + 1) * part] for x in g[1:]))
+    poses = _pose_graph_iterations(mine, g.poses, num_iters, damping, anchor_weight, _axis_sum(mesh, axis, *graph))
     return poses[0] if single else poses
 
 
@@ -443,11 +513,20 @@ def _pcg_solve(matvec_fn, rhs, Minv_blocks, iters):
 
 
 def _ba_iteration(poses, landmarks, obs_pose, obs_lm, obs_pts, weights, prep: _BAPrep, damping,
-                  anchor_weight, solver="dense", cg_iters=64):
+                  anchor_weight, solver="dense", cg_iters=64, reduce=None):
     """One Schur-complement Gauss-Newton iteration (observations sorted by
     landmark). ``'dense'`` materializes the reduced camera system and
     solves it; ``'pcg'`` applies it matrix-free inside preconditioned CG
-    (block-Jacobi on its 6x6 pose diagonal)."""
+    (block-Jacobi on its 6x6 pose diagonal).
+
+    ``reduce`` (None on one device) sums a rank's partial terms over the
+    ranks when the observations are split by landmark ownership: the
+    camera blocks, the coupling and the right-hand side (dense), the
+    preconditioner's blocks, the right-hand side and each CG step's partial
+    product ('pcg'), and the landmark updates. A rank's own sums keep
+    their fixed order.
+    """
+    red = reduce or (lambda x: x)
     L = poses.shape[0]
     M = landmarks.shape[0]
     N = obs_pose.shape[0]
@@ -477,11 +556,11 @@ def _ba_iteration(poses, landmarks, obs_pose, obs_lm, obs_pts, weights, prep: _B
 
     eye6 = torch.eye(6, dtype=dtype, device=dev)
     anchor = _anchor_blocks(L, poses, anchor_weight)
-    rhs = bc - coup
+    rhs = red(bc) - red(coup)
 
     if solver == "dense":
-        S = _schur_coupling(L, prep, V, W_obs)
-        Sm = (-S + _block_diag(Hcc + anchor)).reshape(L * 6, L * 6)
+        S = red(_schur_coupling(L, prep, V, W_obs))
+        Sm = (-S + _block_diag(red(Hcc) + anchor)).reshape(L * 6, L * 6)
         Sm = Sm + torch.eye(L * 6, dtype=dtype, device=dev) * damping
         delta_c = _solve(Sm, -rhs.reshape(L * 6, 1))[:, 0].reshape(L, 6)
     else:
@@ -489,18 +568,18 @@ def _ba_iteration(poses, landmarks, obs_pose, obs_lm, obs_pts, weights, prep: _B
         # difference taken before the sum (Hcc and the self-coupling are
         # large sums whose difference is damping-small)
         VWt = (V[:, :, None, :] * W_obs[:, None, :, :]).sum(-1)
-        diag_S = _segment_sum((_gram(Jp, Jp) - VWt).reshape(N, 36), prep.pose).reshape(L, 6, 6)
+        diag_S = red(_segment_sum((_gram(Jp, Jp) - VWt).reshape(N, 36), prep.pose).reshape(L, 6, 6))
         Minv = _inv(diag_S + anchor + damping * eye6)
 
         def matvec_fn(x):
-            part = matvec(Hcc, x) - _coupling_matvec(x, obs_pose, obs_lm, W_obs, Hll_inv, prep)
+            part = red(matvec(Hcc, x) - _coupling_matvec(x, obs_pose, obs_lm, W_obs, Hll_inv, prep))
             return part + matvec(anchor, x) + damping * x
 
         delta_c = _pcg_solve(matvec_fn, -rhs, Minv, cg_iters)
 
     # back-substitute the landmarks: delta_l = -Hll^-1 (bl + W^T delta_c)
     Wt_dc = _segment_sum((W_obs * delta_c[obs_pose][:, :, None]).sum(-2), prep.lm)
-    delta_l = -matvec(Hll_inv, bl + Wt_dc)
+    delta_l = red(-matvec(Hll_inv, bl + Wt_dc))
     return matmul_small(se3_exp(delta_c), poses), landmarks + delta_l
 
 
@@ -592,3 +671,118 @@ def ba_refine(
     k_max = poses.shape[0] if max_obs_per_landmark is None else max_obs_per_landmark
     return _ba_refine_impl(poses, landmarks, obs_pose, obs_lm, obs_pts, weights, num_iters, damping,
                            anchor_weight, k_max, solver, cg_iters, true_max)
+
+
+def partition_observations_by_landmark(obs_pose, obs_lm, obs_pts, weights, n):
+    """Host-side prep for :func:`ba_refine_sharded` (a copy of the JAX
+    package's, numpy in and out).
+
+    Sorts observations by landmark and splits them into ``n`` shards at
+    landmark boundaries (every landmark's observations land on exactly one
+    shard: landmark ownership), padding shards to equal length with
+    weight-0 observations.
+
+    Returns (obs_pose (n, Ns), obs_lm (n, Ns), obs_pts (n, Ns, 3),
+    weights (n, Ns), max_obs_per_landmark).
+    """
+    obs_pose = np.asarray(obs_pose)
+    obs_lm = np.asarray(obs_lm)
+    obs_pts = np.asarray(obs_pts)
+    weights = np.asarray(weights)
+    N = obs_lm.shape[0]
+
+    order = np.argsort(obs_lm, kind="stable")
+    obs_pose, obs_lm, obs_pts, weights = obs_pose[order], obs_lm[order], obs_pts[order], weights[order]
+    uniq, starts, counts = np.unique(obs_lm, return_index=True, return_counts=True)
+    k_max = int(counts.max()) if counts.size else 1
+    # segment s goes to the shard its cumulative midpoint falls in
+    cum = np.cumsum(counts) - counts / 2.0
+    shard_of_seg = np.minimum((cum * n / max(N, 1)).astype(int), n - 1)
+
+    per_shard = [[] for _ in range(n)]
+    for s, st, c in zip(shard_of_seg, starts, counts):
+        per_shard[s].append((st, c))
+    Ns = max(max((sum(c for _, c in segs) for segs in per_shard), default=1), 1)
+
+    out_pose = np.zeros((n, Ns), obs_pose.dtype)
+    out_lm = np.zeros((n, Ns), obs_lm.dtype)
+    out_pts = np.zeros((n, Ns, 3), obs_pts.dtype)
+    out_w = np.zeros((n, Ns), weights.dtype)
+    for s, segs in enumerate(per_shard):
+        o = 0
+        for st, c in segs:
+            sl = slice(st, st + c)
+            out_pose[s, o : o + c] = obs_pose[sl]
+            out_lm[s, o : o + c] = obs_lm[sl]
+            out_pts[s, o : o + c] = obs_pts[sl]
+            out_w[s, o : o + c] = weights[sl]
+            o += c
+        # Padding rows carry the shard's LAST owned landmark id (not 0):
+        # each shard's observation list must stay SORTED by landmark for
+        # the segmented-scan reductions. A trailing run of landmark 0 would
+        # form a segment of its own whose (zero) sums overwrite landmark
+        # 0's real sums on its owner shard; with the last owned id the
+        # zero-weight pads join the final real segment and add nothing.
+        if o and o < Ns:
+            out_lm[s, o:] = out_lm[s, o - 1]
+    return out_pose, out_lm, out_pts, out_w, k_max
+
+
+def ba_refine_sharded(
+    poses: torch.Tensor,
+    landmarks: torch.Tensor,
+    obs_pose: torch.Tensor,
+    obs_lm: torch.Tensor,
+    obs_pts: torch.Tensor,
+    mesh,
+    axis: str = "data",
+    weights: Optional[torch.Tensor] = None,
+    num_iters: int = 5,
+    damping: float = 1e-4,
+    anchor_weight: float = 1e6,
+    solver: str = "dense",
+    cg_iters: int = 64,
+):
+    """Schur-complement bundle adjustment with the observations split over
+    the mesh ``axis`` by landmark ownership
+    (:func:`partition_observations_by_landmark`).
+
+    Every rank of the axis passes the same problem and keeps the shard of
+    its index. A landmark's observations all sit on one rank, so its 3x3
+    block, its coupling pairs and its back-substitution are complete
+    there. With ``solver='dense'`` an iteration sums, over the axis, the
+    (L, 6, 6) camera blocks, the (L, 6, L, 6) coupling and the (L, 6)
+    right-hand side terms, plus the (M, 3) landmark updates; with
+    ``'pcg'`` the coupling is never formed and each CG step sums one
+    (L, 6) partial product. The pair bound of the dense coupling is the
+    partition's true maximum, so no pair is dropped. No gradient crosses the
+    ranks: an input that needs one raises (:func:`ba_refine` differentiates).
+
+    Returns (refined_poses (L, 4, 4), refined_landmarks (M, 3)), the same
+    on every rank.
+    """
+    if solver not in ("dense", "pcg"):
+        raise ValueError(f"solver must be 'dense' or 'pcg', got {solver!r}")
+    n = mesh.shape[axis]
+    N = obs_pts.shape[0]
+    if weights is None:
+        weights = poses.new_ones(N)
+    reduce = _axis_sum(mesh, axis, poses, landmarks, obs_pts, weights)
+    host = lambda x: x.detach().cpu().numpy()
+    s_pose, s_lm, s_pts, s_w, k_max = partition_observations_by_landmark(
+        host(obs_pose), host(obs_lm), host(obs_pts), host(weights), n
+    )
+    k = mesh.index(axis)
+    dev = poses.device
+    obs_pose, obs_lm = (torch.from_numpy(x[k]).to(dev).long() for x in (s_pose, s_lm))
+    obs_pts, weights = (torch.from_numpy(x[k]).to(dev) for x in (s_pts, s_w))
+    L, M = poses.shape[0], landmarks.shape[0]
+    prep = _BAPrep(
+        lm=_segments_sorted(obs_lm, M),
+        pose=_segments(obs_pose, L),
+        pairs=_pair_offsets(obs_pose, obs_lm, L, max(min(k_max, obs_pose.shape[0]), 1)) if solver == "dense" else [],
+    )
+    for _ in range(num_iters):
+        poses, landmarks = _ba_iteration(poses, landmarks, obs_pose, obs_lm, obs_pts, weights, prep, damping,
+                                         anchor_weight, solver=solver, cg_iters=cg_iters, reduce=reduce)
+    return poses, landmarks

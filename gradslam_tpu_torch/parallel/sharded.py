@@ -1,11 +1,21 @@
-"""Differentiable SLAM training on one device (PyTorch port of the
-single-device part of gradslam_tpu.parallel.sharded).
+"""Sharded SLAM over a (data, map) mesh and differentiable SLAM training
+(PyTorch port of gradslam_tpu.parallel.sharded).
+
+:func:`sharded_slam` runs the batch sharded over the mesh's 'data' axis and
+the map arena partitioned over its 'map' axis: each rank holds a
+(B/data, CAP/map, 12) shard of the arena and nothing larger. Under
+``map > 1`` the ranks of a map group run the odometry on the same assembled
+candidates and select the fusion winners per rank and across the group
+(:mod:`gradslam_tpu_torch.slam.mapshard`); every cross-rank step is an
+``all_reduce`` (an owner-placed sum or a min), so the result is that of one
+device.
 
 The end-to-end stretch goal: optimize depth-calibration parameters by
 backpropagating a trajectory loss through the whole SLAM run (odometry and
-fusion). Neither kernel of the forward has a backward: the KNN outputs are
-detached and the fusion winners are integers, so autograd differentiates
-the gathers, solves and merges around them.
+fusion), one device (:func:`slam_loss`) or the batch over 'data'
+(:func:`sharded_train_step`). Neither kernel of the forward has a backward:
+the KNN outputs are detached and the fusion winners are integers, so
+autograd differentiates the gathers, solves and merges around them.
 """
 
 from __future__ import annotations
@@ -16,8 +26,17 @@ from torch import nn
 
 from ..slam.icpslam import SLAMOptions, slam_sequence
 from ..utils.device import resolve_device
+from .mesh import Mesh, shard_batch
 
-__all__ = ["DepthCalibParams", "slam_loss", "depth_calib_from_numpy"]
+__all__ = [
+    "DepthCalibParams",
+    "slam_loss",
+    "depth_calib_from_numpy",
+    "sharded_slam",
+    "sharded_train_step",
+]
+
+A14C = "ROADMAP item A14c"
 
 
 class DepthCalibParams(nn.Module):
@@ -62,3 +81,57 @@ def depth_calib_from_numpy(scale, bias, device=None) -> DepthCalibParams:
     return DepthCalibParams(
         float(np.float32(np.asarray(scale))), float(np.float32(np.asarray(bias))), device=device
     )
+
+
+def sharded_slam(mesh: Mesh, rgb_seq, depth_seq, intrinsics, poses_seq, opts: SLAMOptions, capacity: int):
+    """Runs :func:`slam_sequence` with the batch sharded over the mesh's
+    'data' axis and the map arena partitioned over its 'map' axis.
+
+    Every rank calls it with the same global (B, L, ...) inputs and runs its
+    data group's batch slice. With ``map == 1`` that is :func:`slam_sequence`
+    on the slice, on every :class:`SLAMOptions` path. With ``map > 1`` map
+    rank ``m`` holds the global slots ``[m*CAP/map, (m+1)*CAP/map)``; that
+    runs the exact full-arena fusion path (``PointFusion()``'s mapping) and
+    raises ``ValueError`` for the others (ROADMAP item A14b).
+
+    Returns:
+        (map_state, poses): this rank's shards, ``map_state.data``
+        (B/data, CAP/map, 12) with the global ``num_points`` (B/data,) and
+        poses (B/data, L, 4, 4).
+        :func:`~gradslam_tpu_torch.parallel.mesh.unshard_map_state` and
+        :func:`~gradslam_tpu_torch.parallel.mesh.unshard_batch` assemble them.
+    """
+    shard = mesh.map_shard(capacity) if mesh.shape["map"] > 1 else None
+    rgb, depth, K, poses = shard_batch(mesh, (rgb_seq, depth_seq, intrinsics, poses_seq))
+    return slam_sequence(rgb, depth, K, poses, opts, capacity, shard=shard)
+
+
+def sharded_train_step(mesh: Mesh, opts: SLAMOptions, capacity: int, lr: float = 1e-2):
+    """An SGD step over :class:`DepthCalibParams` with the batch sharded
+    over the mesh's 'data' axis.
+
+    The returned ``step(params, rgb, depth, K, gt_poses) -> (new_params,
+    loss)`` takes the global batch on every rank; each data group runs its
+    slice's :func:`slam_loss` scaled by ``B_local / B``, the gradients are
+    summed over 'data' (one ``all_reduce``) and one SGD step follows. Every
+    rank returns the same new parameters and the global loss (the mean over
+    the whole batch). ``map > 1`` needs the map-sharded forward to be
+    differentiable through its collectives: ROADMAP item A14c.
+    """
+    if mesh.shape["map"] > 1:
+        raise ValueError(f"sharded_train_step over a map axis of {mesh.shape['map']} ranks is {A14C}")
+
+    def step(params: DepthCalibParams, rgb, depth, K, gt_poses):
+        B = rgb.shape[0]
+        rgb_l, depth_l, K_l, gt_l = shard_batch(mesh, (rgb, depth, K, gt_poses))
+        loss = slam_loss(params, rgb_l, depth_l, K_l, gt_l, opts, capacity) * (rgb_l.shape[0] / B)
+        grads = torch.autograd.grad(loss, [params.scale, params.bias])
+        g = mesh.all_reduce(torch.stack(grads), "data")
+        total = mesh.all_reduce(loss.detach().clone(), "data")
+        new = DepthCalibParams(device=params.scale.device)
+        with torch.no_grad():
+            new.scale.copy_(params.scale - lr * g[0])
+            new.bias.copy_(params.bias - lr * g[1])
+        return new, total
+
+    return step

@@ -248,7 +248,7 @@ def _merge_rows(rows, fa, alpha):
 
 
 def _winner_slots(view, live, frame_attr, pose, intrinsics, dist_th, dot_th, H, W, A, CAP, compact,
-                  src_slots=None):
+                  src_slots=None, shard=None):
     """Projective association and winner selection against a map view: the
     arena, its prefix window, or the block-gated sub-arena whose rows sit
     at arena slots ``src_slots`` (None: view row == arena slot).
@@ -256,6 +256,11 @@ def _winner_slots(view, live, frame_attr, pose, intrinsics, dist_th, dot_th, H, 
     ``compact`` compacts the active rows into the (B, A) buffer first;
     without it the view rows are the candidates (a prefix window no larger
     than the buffer).
+
+    With a :class:`~gradslam_tpu_torch.slam.mapshard.MapShard` the view is
+    this rank's part of the arena: the buffer is the global one, of which
+    this rank selects among the rows it holds, and the group then takes
+    the least key of the ranks' winners (:meth:`MapShard.winner`).
 
     Returns:
         (arena_slot, avalid, wslots): the (B, A) compacted arena slots and
@@ -265,7 +270,13 @@ def _winner_slots(view, live, frame_attr, pose, intrinsics, dist_th, dot_th, H, 
     B, NA, _ = view.shape
     HW = H * W
     h, w, active = _project_points_to_frame(view[..., 0:3], live, pose, intrinsics, H, W)
-    if compact:
+    if shard is not None:
+        idx, avalid, cand_slots, cand_valid = shard.compact(active, A)
+        ma = _take(view, idx)
+        arena_slot = idx + shard.offset
+        ha, wa, _ = _project_points_to_frame(ma[..., 0:3], torch.ones_like(avalid), pose, intrinsics, H, W)
+        pixa = ha * W + wa
+    elif compact:
         idx, avalid = compact_masked(active, A)
         ma = _take(view, idx)
         arena_slot = idx if src_slots is None else src_slots.gather(1, idx.long())
@@ -284,7 +295,11 @@ def _winner_slots(view, live, frame_attr, pose, intrinsics, dist_th, dot_th, H, 
     gated = avalid & are_points_close(fp, mp, dist_th) & are_normals_similar(fn, mn, dot_th)
     pix_seg = torch.where(gated, pixa, HW)
     ray = ((mp - fp) ** 2).sum(-1)
-    wslots = pixel_winner(pix_seg, *winner_keys(ma[..., 9], ray), arena_slot, HW, CAP)
+    k_hi, k_lo = winner_keys(ma[..., 9], ray)
+    wslots = pixel_winner(pix_seg, k_hi, k_lo, arena_slot, HW, CAP)
+    if shard is not None:
+        wslots = shard.winner(wslots, torch.where(avalid, arena_slot, CAP), k_hi, k_lo)
+        return cand_slots, cand_valid, wslots
     return arena_slot, avalid, wslots
 
 
@@ -343,22 +358,26 @@ def _fusion_window_dense(map_state, view, live, frame_attr, valid_depth, pose, i
 
 
 def _append_frame(map_state, data, frame_attr, valid_depth, model_img, win_rows, return_active,
-                  arena_slot, avalid, dense_model_rows):
+                  arena_slot, avalid, dense_model_rows, shard=None):
     """Appends every valid pixel without a winner to the merged arena
     ``data`` and builds the returned tuple.
 
     ``model_img`` (B, H*W) holds the winner slot per pixel (CAP where none)
     and ``win_rows`` (B, H*W, 12) the merged row there (read only for the
-    model rows).
+    model rows). With a ``shard``, ``data`` is this rank's part of the
+    arena and the slots are global.
     """
     B, HW, _ = frame_attr.shape
-    CAP = map_state.capacity
+    CAP = map_state.capacity if shard is None else shard.capacity
     has_win = model_img < CAP
     new_mask = valid_depth.reshape(B, HW) & ~has_win
     # appended points carry their frame label at confidence alpha
     tail = frame_attr[..., 9:10] if frame_attr.shape[-1] > 10 else frame_attr.new_zeros((B, HW, 2))
     frame_rows = torch.cat([frame_attr, tail], dim=-1)
-    out = append_rows_to_map(MapState(data, map_state.num_points), frame_rows, new_mask)
+    if shard is None:
+        out = append_rows_to_map(MapState(data, map_state.num_points), frame_rows, new_mask)
+    else:
+        out = shard.append_rows(MapState(data, map_state.num_points), frame_rows, new_mask)
     if not return_active:
         return out
     app_slot = map_state.num_points[:, None] + torch.cumsum(new_mask, dim=1, dtype=torch.int32) - 1
@@ -396,6 +415,7 @@ def fusion_update_compact(
     dense_model_rows: bool = False,
     window_merge: str = "dense",
     need_active_set: bool = True,
+    shard=None,
 ):
     """One PointFusion update of the arena with active-set compaction.
 
@@ -430,6 +450,12 @@ def fusion_update_compact(
             channels 10-11 by streaming majority (see :func:`_merge_rows`);
             an appended point starts at confidence alpha. Labels enter no
             gate or winner key, so channels 0-9 are those of a run without.
+        shard: a :class:`~gradslam_tpu_torch.slam.mapshard.MapShard` when
+            ``map_state`` is this rank's part of an arena partitioned over a
+            group (every rank of the group calls with the same frame): the
+            exact full-arena path only (no ``block_size``, window or model
+            rows). The returned set and model image are global and the same
+            on every rank; the new state is this rank's part.
 
     Returns:
         The new :class:`MapState`; with ``return_active`` also
@@ -450,6 +476,24 @@ def fusion_update_compact(
     if frame_labels is not None:
         attrs.append(frame_labels.reshape(B, H, W, 1).to(alpha_img.dtype))
     frame_attr = torch.cat(attrs, dim=-1).reshape(B, HW, -1)
+
+    if shard is not None:
+        if block_size is not None or dense_model_rows or _resolve_assoc_window(assoc_window, shard.capacity):
+            raise ValueError("a map-sharded fusion step runs the exact full-arena path only (ROADMAP item A14b)")
+        CAP = shard.capacity
+        view = map_state.data
+        arena_slot, avalid, wslots = _winner_slots(
+            view, shard.live(map_state), frame_attr, pose, intrinsics, dist_th, dot_th, H, W, A, CAP, True,
+            shard=shard,
+        )
+        # the winner's owner merges it
+        wvalid = wslots < CAP
+        alpha = torch.where(wvalid[..., None], frame_attr[..., 9:10], 0.0)
+        rows = shard.local(wslots)
+        mrows = _merge_rows(_take(view, rows), frame_attr, alpha)
+        data = scatter_rows(view, rows, mrows, wvalid & shard.owns(wslots))
+        return _append_frame(map_state, data, frame_attr, valid_depth, wslots, None, return_active,
+                             arena_slot, avalid, False, shard=shard)
 
     win = None
     if block_size is not None:

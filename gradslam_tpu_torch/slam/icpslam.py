@@ -13,6 +13,12 @@ the card runs ahead of it.
     with the model image that the previous fusion step left at its pixel.
   - Mapping is the PointFusion update (or the append-only aggregate) of
     the fixed-capacity arena.
+
+Given a :class:`~gradslam_tpu_torch.slam.mapshard.MapShard` (``shard``),
+the arena is this rank's part of one partitioned by slot over a process
+group: the candidate rows are assembled on every rank of the group, so the
+odometry runs on identical inputs everywhere, and the fusion step selects
+winners per rank and across the group. With ``shard=None`` nothing changes.
 """
 
 from __future__ import annotations
@@ -143,22 +149,30 @@ def _take_rows(data, idx):
     return torch.gather(data, 1, idx.long()[..., None].expand(-1, -1, data.shape[-1]))
 
 
-def _odometry_candidates(map_state, cand_slots, cand_valid, app_start, win):
+def _odometry_candidates(map_state, cand_slots, cand_valid, app_start, win, shard=None):
     """Candidate rows for localization at the previous pose: the previous
     fusion step's active set plus the rows it appended, which lie
     contiguously at ``[app_start, num_points)``.
 
+    With a ``shard`` each rank writes the rows it holds at their positions
+    and one owner-placed sum assembles them: points and normals only, the
+    channels the odometry reads.
+
     Returns:
-        (rows (B, A+win, 12), valid (B, A+win) bool).
+        (rows (B, A+win, 12), or 6 channels with a shard; valid (B, A+win)
+        bool).
     """
-    CAP = map_state.capacity
+    CAP = map_state.capacity if shard is None else shard.capacity
     win = min(win, CAP)
-    rows_a = _take_rows(map_state.data, cand_slots)
     start = torch.clamp(app_start, 0, CAP - win)
     slot_n = start[:, None] + torch.arange(win, dtype=torch.int32, device=app_start.device)[None, :]
-    rows_n = _take_rows(map_state.data, slot_n)
     valid_n = (slot_n >= app_start[:, None]) & (slot_n < map_state.num_points[:, None])
-    return torch.cat([rows_a, rows_n], dim=1), torch.cat([cand_valid, valid_n], dim=1)
+    valid = torch.cat([cand_valid, valid_n], dim=1)
+    if shard is not None:
+        return shard.gather_rows(map_state.data[..., 0:6], torch.cat([cand_slots, slot_n], dim=1)), valid
+    rows_a = _take_rows(map_state.data, cand_slots)
+    rows_n = _take_rows(map_state.data, slot_n)
+    return torch.cat([rows_a, rows_n], dim=1), valid
 
 
 def _default_tgt_capacity(H, W, ds):
@@ -167,7 +181,7 @@ def _default_tgt_capacity(H, W, ds):
 
 
 def _localize(map_state, prev_pose, rgb, depth, intrinsics, opts: SLAMOptions, cand=None,
-              local_maps=None):
+              local_maps=None, shard=None):
     """Odometry: the new (B, 4, 4) pose of the live frame.
 
     The live frame is seeded with the previous pose; the source cloud is
@@ -193,7 +207,7 @@ def _localize(map_state, prev_pose, rgb, depth, intrinsics, opts: SLAMOptions, c
             idx = torch.arange(win, dtype=torch.int32, device=src_rows.device)
             src_live = idx[None, :] < map_state.num_points[:, None]
     else:
-        src_rows, src_live = _odometry_candidates(map_state, *cand, win=H * W)
+        src_rows, src_live = _odometry_candidates(map_state, *cand, win=H * W, shard=shard)
     h, w, active = _project_points_to_frame(src_rows[..., 0:3], src_live, prev_pose, intrinsics, H, W)
 
     transform = None
@@ -262,17 +276,20 @@ def _localize_projective(map_state, prev_pose, model_img, rgb, depth, intrinsics
 
 
 def _map_update(map_state, pose, rgb, depth, intrinsics, opts: SLAMOptions,
-                return_active: bool = False, labels=None, local_maps=None):
+                return_active: bool = False, labels=None, local_maps=None, shard=None):
     """Mapping: fuse (or aggregate) the live frame, and its optional (B, H, W)
     semantic ``labels``, into the arena.
 
     With ``return_active`` the fusion path also returns
-    ``(slots, valid, model_img, model_rows or None)``.
+    ``(slots, valid, model_img, model_rows or None)``. A ``shard`` builds no
+    model rows: only the projective odometry reads them, and it does not
+    run on a sharded arena.
     """
     vm, nm, gv, gn, valid = _frame_maps(rgb, depth, intrinsics, pose, local_maps)
     if opts.fusion:
         H, W = rgb.shape[1:3]
-        dense = return_active and _resolve_model_rows(opts.model_rows, H, W, map_state.capacity)
+        dense = (return_active and shard is None
+                 and _resolve_model_rows(opts.model_rows, H, W, map_state.capacity))
         ret = fusion_update_compact(
             map_state, gv, gn, vm, rgb, valid, pose, intrinsics,
             opts.dist_th, opts.dot_th, opts.sigma,
@@ -286,6 +303,7 @@ def _map_update(map_state, pose, rgb, depth, intrinsics, opts: SLAMOptions,
             window_merge=opts.window_merge,
             # projective odometry does not reuse the compacted set
             need_active_set=opts.assoc != "projective",
+            shard=shard,
         )
         if not return_active:
             return ret
@@ -343,23 +361,28 @@ class SLAMState(NamedTuple):
 
 
 def slam_init_state(rgb, depth, intrinsics, opts: SLAMOptions, capacity: int, pose0=None,
-                    labels=None) -> SLAMState:
+                    labels=None, shard=None) -> SLAMState:
     """Maps the first (B, H, W, .) frame, and its optional (B, H, W)
     semantic ``labels``, into a fresh arena of ``capacity`` rows at
-    ``pose0`` (identity when None)."""
+    ``pose0`` (identity when None); with a ``shard``, into this rank's
+    ``capacity / n`` rows of it."""
     B, H, W, _ = rgb.shape
     dev, dtype = rgb.device, rgb.dtype
-    map_state = init_map(B, capacity, dtype, device=dev)
+    if shard is not None:
+        from .mapshard import check_sharded_options
+
+        check_sharded_options(opts, shard)
+    map_state = init_map(B, capacity if shard is None else shard.rows, dtype, device=dev)
     if pose0 is None:
         pose0 = torch.eye(4, dtype=dtype, device=dev).expand(B, 4, 4)
     A, _ = candidate_capacity(opts, H, W, capacity)
     app_start = map_state.num_points
     if opts.fusion:
         map_state, (slots, valid, model_img, model_rows) = _map_update(
-            map_state, pose0, rgb, depth, intrinsics, opts, return_active=True, labels=labels
+            map_state, pose0, rgb, depth, intrinsics, opts, return_active=True, labels=labels, shard=shard
         )
     else:
-        map_state = _map_update(map_state, pose0, rgb, depth, intrinsics, opts, labels=labels)
+        map_state = _map_update(map_state, pose0, rgb, depth, intrinsics, opts, labels=labels, shard=shard)
         slots = torch.zeros((B, A), dtype=torch.int32, device=dev)
         valid = torch.zeros((B, A), dtype=torch.bool, device=dev)
         model_img = torch.full((B, H * W), capacity, dtype=torch.int32, device=dev)
@@ -368,13 +391,14 @@ def slam_init_state(rgb, depth, intrinsics, opts: SLAMOptions, capacity: int, po
 
 
 def slam_step_state(state: SLAMState, rgb, depth, intrinsics, opts: SLAMOptions, gt_pose=None,
-                    labels=None, local_maps=None) -> SLAMState:
+                    labels=None, local_maps=None, shard=None) -> SLAMState:
     """One SLAM step on a :class:`SLAMState` (the frame-loop body).
 
     With fusion and ICP odometry, the odometry candidates are the carried
     fusion active set plus the last frame's appends, not the whole arena;
     with ``assoc='projective'`` the target is the carried model image.
-    ``labels`` (B, H, W) are the frame's semantic labels.
+    ``labels`` (B, H, W) are the frame's semantic labels. With a ``shard``
+    the state's arena is this rank's part (see the module's docstring).
     """
     if opts.odom == "gt":
         if gt_pose is None:
@@ -399,23 +423,23 @@ def slam_step_state(state: SLAMState, rgb, depth, intrinsics, opts: SLAMOptions,
             empty = state.cand_slots[:, :0]
             cand = (empty, empty.bool(), state.app_start)
         pose = _localize(state.map_state, state.pose, rgb, depth, intrinsics, opts,
-                         cand=cand, local_maps=local_maps)
+                         cand=cand, local_maps=local_maps, shard=shard)
     app_start = state.map_state.num_points
     if opts.fusion:
         m, (slots, valid, model_img, model_rows) = _map_update(
             state.map_state, pose, rgb, depth, intrinsics, opts,
-            return_active=True, labels=labels, local_maps=local_maps,
+            return_active=True, labels=labels, local_maps=local_maps, shard=shard,
         )
     else:
         m = _map_update(state.map_state, pose, rgb, depth, intrinsics, opts, labels=labels,
-                        local_maps=local_maps)
+                        local_maps=local_maps, shard=shard)
         slots, valid, model_img = state.cand_slots, state.cand_valid, state.model_img
         model_rows = state.model_rows
     return SLAMState(m, pose, slots, valid, app_start, model_img, model_rows)
 
 
 def slam_sequence(rgb_seq, depth_seq, intrinsics, poses_seq, opts: SLAMOptions, capacity: int,
-                  labels_seq=None):
+                  labels_seq=None, shard=None):
     """Runs SLAM over a whole (B, L, H, W, .) sequence.
 
     Args:
@@ -425,20 +449,27 @@ def slam_sequence(rgb_seq, depth_seq, intrinsics, poses_seq, opts: SLAMOptions, 
         capacity: arena capacity.
         labels_seq: optional (B, L, H, W) semantic labels, fused into the
             arena's channels 10-11 (``MapState.labels``, ``label_conf``).
+        shard: optional :class:`~gradslam_tpu_torch.slam.mapshard.MapShard`:
+            every rank of its group calls with the same frames and keeps its
+            ``capacity / n`` rows of the arena (the exact full-arena fusion
+            path only).
 
     Returns:
-        (map_state, poses (B, L, 4, 4)).
+        (map_state, poses (B, L, 4, 4)); with a ``shard``, the map state is
+        this rank's part and the poses are the same on every rank.
     """
     L = rgb_seq.shape[1]
     if opts.odom == "gt" and poses_seq is None:
         raise ValueError("gt odometry requires poses")
     pose0 = None if poses_seq is None else poses_seq[:, 0]
     lab = (lambda t: None) if labels_seq is None else (lambda t: labels_seq[:, t])
-    state = slam_init_state(rgb_seq[:, 0], depth_seq[:, 0], intrinsics, opts, capacity, pose0, labels=lab(0))
+    state = slam_init_state(rgb_seq[:, 0], depth_seq[:, 0], intrinsics, opts, capacity, pose0, labels=lab(0),
+                            shard=shard)
     poses = [state.pose]
     for t in range(1, L):
         gt = poses_seq[:, t] if opts.odom == "gt" else None
-        state = slam_step_state(state, rgb_seq[:, t], depth_seq[:, t], intrinsics, opts, gt, labels=lab(t))
+        state = slam_step_state(state, rgb_seq[:, t], depth_seq[:, t], intrinsics, opts, gt, labels=lab(t),
+                                shard=shard)
         poses.append(state.pose)
     return state.map_state, torch.stack(poses, dim=1)
 

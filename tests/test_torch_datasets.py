@@ -7,7 +7,13 @@ against the JAX package's, and each Python route of the port (imageio,
 Pillow) against the JAX package's imageio path.
 """
 
+import ctypes
+import fcntl
+import os
+import pathlib
+import subprocess
 import sys
+import tempfile
 
 import numpy as np
 import pytest
@@ -18,6 +24,52 @@ from gradslam_tpu.datasets import dataloader as j_dataloader
 from gradslam_tpu_torch import datasets as T
 from gradslam_tpu_torch.datasets import imagefile, native_loader
 from tests.datasets.test_loaders import icl_dir, scannet_dir, tum_dir  # noqa: F401 (fixtures)
+
+
+def _build_native_loader():
+    """Builds the JAX package's ``native/libgsloader.so`` before any test runs.
+
+    Its loader runs ``make`` at first use, which writes the library in place;
+    under pytest-xdist several workers race for that build, and one that
+    loads a half-written library caches "unavailable" and decodes in Python
+    (the native cases here then fail). Every worker imports this module
+    while collecting, before the first test, so the build happens here:
+    the Makefile's command and flags into a temporary file in ``native/``,
+    renamed over the library under a lock, skipped when a complete library
+    loads. The library is a build product that ``.gitignore`` lists.
+    """
+    native = pathlib.Path(__file__).resolve().parents[1] / "native"
+    lib = native / "libgsloader.so"
+
+    def complete():
+        try:
+            return bool(ctypes.CDLL(str(lib)).gs_load_color_batch)
+        except (OSError, AttributeError):
+            return False
+
+    cxxflags = os.environ.get("CXXFLAGS", "-O3 -march=native -std=c++17 -fPIC -Wall").split()
+    tmp = None
+    try:
+        with open(native / "Makefile", "rb") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if lib.exists() and complete():
+                return
+            fd, tmp = tempfile.mkstemp(dir=native, prefix=".libgsloader.", suffix=".so")
+            os.close(fd)
+            subprocess.run(
+                [os.environ.get("CXX", "g++"), *cxxflags, "-shared", "loader.cpp", "-o", tmp,
+                 "-lpng", "-ljpeg", "-lpthread"],
+                cwd=native, check=True, capture_output=True, timeout=240,
+            )
+            os.replace(tmp, lib)
+    except (OSError, subprocess.SubprocessError):
+        pass  # no toolchain or no write access: the JAX loader's own build decides, as before
+    finally:
+        if tmp is not None:
+            pathlib.Path(tmp).unlink(missing_ok=True)
+
+
+_build_native_loader()
 
 PY_ROUTES = ["imageio", "pillow"]
 

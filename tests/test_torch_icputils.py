@@ -54,6 +54,22 @@ def test_solve_linear_system_against_jax():
         np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-4, atol=1e-6)
 
 
+@pytest.mark.parametrize("lead", [(), (1,), (3,), (2, 3)])
+def test_solve_linear_system_is_batch_invariant(lead):
+    """Each batch element's solve gives the bits it gives alone, in any
+    layout of the leading axes."""
+    rng = np.random.default_rng(2)
+    A = _t(rng.standard_normal(lead + (50, 6)).astype(np.float32))
+    b = _t(rng.standard_normal(lead + (50, 1)).astype(np.float32))
+    w = _t(rng.random(lead + (50,)).astype(np.float32))
+    out = TI.solve_linear_system(A, b, 1e-3, weights=w)
+    assert out.shape == lead + (6, 1)
+    flat = out.reshape((-1, 6, 1))
+    for i, (a, r, v) in enumerate(zip(A.reshape(-1, 50, 6), b.reshape(-1, 50, 1), w.reshape(-1, 50))):
+        assert torch.equal(flat[i], TI.solve_linear_system(a[None], r[None], 1e-3, weights=v[None])[0])
+    np.testing.assert_allclose(TI._sum_each(w, -1).numpy(), w.numpy().sum(-1), rtol=1e-5)
+
+
 def test_solve_linear_system_recovers_solution():
     rng = np.random.default_rng(1)
     A = rng.standard_normal((100, 6)).astype(np.float32)
