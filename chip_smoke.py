@@ -114,14 +114,30 @@ full-arena fusion) and ``PointFusion(assoc='projective', assoc_window=...)``
      graph on two gloo ranks against one device within 1e-4; 27.
      ``sharded_train_step`` over ``make_mesh(data=2)`` against one
      process's steps. Every KNN and winner call of every rank is held bit
-     for bit against its plain version.
+     for bit against its plain version;
+ 28. the map axis on every mapping path, four gloo ranks: at the ScanNet
+     geometry over ``make_mesh(data=2, map_=2)`` cell 4's projective
+     configuration (``assoc_window=3*H*W``, ``active_capacity=1.5*H*W``,
+     ``model_rows='dense'``) and cell 7's gating (``block_size=4096``), and
+     both again in a 4*H*W arena over ``make_mesh(data=1, map_=4)``, where
+     live rows, the window and the visible blocks reach ranks 0-2 and
+     blocks straddle the ranks; at
+     the golden geometry over ``make_mesh(data=1, map_=4)`` the 'rows' and
+     'dense' windows (``assoc_window=2*H*W`` in a 3*H*W arena: a window no
+     smaller than the arena is off), ``fusion=False``,
+     ``reuse_actives=False`` and projective association with
+     ``model_rows='gather'`` in a 2*H*W arena; each bit-equal to one
+     process on the whole batch, every kernel call bit-equal to its plain
+     version;
+ 29. ``sharded_train_step`` over ``make_mesh(data=1, map_=2)`` on the pair
+     of phase 27's ranks, at its inputs, against one process's steps.
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after: the KNN kernel 40 times per frame step on the KNN path and
 never on the projective one, 2 per ICP iteration and 1 more per detector
 set in a loop closure, the winner kernel once per fusion step on both, once
 per compaction and once per accepted closure of the managed run (the
-refresh's selection), neither in a backward; in phases 22-27 each
+refresh's selection), neither in a backward; in phases 22-29 each
 rank counts its own launches. Any failed check raises. The line before the
 last is a JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": ...}``. Needs one card; exits non-zero without one.
@@ -2245,12 +2261,13 @@ def refinement_phase(dev, ba_iters=8, cg_iters=64):
 # 22.-27. the parallel package: ranks that share the card
 # ---------------------------------------------------------------------------
 
-RANK_TIMEOUT_S = {"nccl": 240, "map": 420, "pair": 420}
+RANK_TIMEOUT_S = {"nccl": 240, "map": 420, "pair": 420, "options": 420}
 PIPE_FRAMES = 10  # the golden clip cycled to L=10, phase 3's input
 SEQPAR_CHUNKS, SEQPAR_L = 4, 9
 MAP4_FRAMES = 8  # the 4-shard run: its live rows reach all four shards (the arena nearly full)
 SHARDED_BA = ((64, 10_000), (256, 100_000))  # the smallest and the largest of phase 21's problems
 SHARDED_BA_ITERS = 4
+OPTION_FRAMES = 10  # phase 28's golden runs: the clip cycled to L=10, phase 3's input
 # the loss on the clip's own frames is ~5.7e-8 m^2: a step at a smaller lr
 # leaves the scale at 1.0 in float32
 TRAIN_LR = 1e3
@@ -2476,45 +2493,116 @@ def _rank_refine(dev, rank, res):
 
 
 def _rank_train(dev, rank, res):
-    """Phase 27: two ``sharded_train_step`` steps over ``make_mesh(data=2)``
-    at phase 8's inputs; rank 0 holds them against one process's steps."""
+    """Phases 27 and 29: two ``sharded_train_step`` steps over
+    ``make_mesh(data=2)`` and two over ``make_mesh(data=1, map_=2)`` at
+    phase 8's inputs; rank 0 holds them against one process's steps, and
+    the map=2 losses against one process's ``slam_loss`` at the parameters
+    each step started from."""
     from gradslam_tpu_torch.parallel import DepthCalibParams, make_mesh, sharded_train_step, slam_loss
 
-    mesh = make_mesh(data=2, device=dev)
     colors, depths, K = _golden_clip(3)
     B, L, H, W = colors.shape[:4]
     rgb, _, obs, Kt = _calib_inputs(colors, depths, K, dev)
     gt = torch.from_numpy(_cycled_poses(L)).to(dev)
     opts, cap = _fusion_opts(dev), L * H * W
-    step = sharded_train_step(mesh, opts, cap, lr=TRAIN_LR)
-    params, ref = DepthCalibParams(device=dev), DepthCalibParams(device=dev)
-    out = {"loss": [], "scale": [], "bias": [], "ref_loss": [], "ref_scale": [], "ref_bias": []}
-    for i in range(2):
-        (params, loss), *rec = _recorded(lambda: step(params, rgb, obs, Kt, gt))
-        _check_calls(f"train step {i}", *rec[1:])
-        out["loss"].append(loss.item())
-        out["scale"].append(params.scale.item())
-        out["bias"].append(params.bias.item())
-        if rank == 0:
+    ref_out = {"ref_loss": [], "ref_scale": [], "ref_bias": []}
+    if rank == 0:
+        ref = DepthCalibParams(device=dev)
+        for _ in range(2):
             ref_loss = slam_loss(ref, rgb, obs, Kt, gt, opts, cap)
             gs, gb = torch.autograd.grad(ref_loss, [ref.scale, ref.bias])
             with torch.no_grad():
                 ref.scale -= TRAIN_LR * gs
                 ref.bias -= TRAIN_LR * gb
-            out["ref_loss"].append(ref_loss.item())
-            out["ref_scale"].append(ref.scale.item())
-            out["ref_bias"].append(ref.bias.item())
-    res["train step"] = dict(out, seconds=rec[0], launches=rec[1])
+            ref_out["ref_loss"].append(ref_loss.item())
+            ref_out["ref_scale"].append(ref.scale.item())
+            ref_out["ref_bias"].append(ref.bias.item())
+    for key, (data, map_) in (("train step", (2, 1)), ("train step map", (1, 2))):
+        step = sharded_train_step(make_mesh(data=data, map_=map_, device=dev), opts, cap, lr=TRAIN_LR)
+        params = DepthCalibParams(device=dev)
+        out = {"loss": [], "scale": [], "bias": [], "same_loss": []}
+        for i in range(2):
+            if rank == 0 and map_ > 1:
+                out["same_loss"].append(slam_loss(params, rgb, obs, Kt, gt, opts, cap).item())
+            (params, loss), *rec = _recorded(lambda: step(params, rgb, obs, Kt, gt))
+            _check_calls(f"{key} {i}", *rec[1:])
+            out["loss"].append(loss.item())
+            out["scale"].append(params.scale.item())
+            out["bias"].append(params.bias.item())
+        res[key] = dict(out, **ref_out, seconds=rec[0], launches=rec[1])
 
 
 def _rank_pair(dev, rank, res, out):
-    """Phases 24, 26 and 27 on one pair of gloo ranks."""
+    """Phases 24, 26, 27 and 29 on one pair of gloo ranks."""
     _rank_pipeline(dev, rank, res)
     _rank_refine(dev, rank, res)
     _rank_train(dev, rank, res)
 
 
-RANK_PHASES = {"nccl": _rank_nccl, "map": _rank_map, "pair": _rank_pair}
+def _option_runs():
+    """Phase 28's runs: (key, clip, (data, map), arena rows, options).
+
+    Cells 4 and 7 keep their live rows on map rank 0; their configurations
+    again in a 4*H*W arena over four ranks of 76,800 rows (not a multiple of
+    4,096) put live rows on ranks 0-2, blocks across the ranks and cell 4's
+    window over ranks 0-2."""
+    S, G = 240 * 320, 120 * 160
+    cell4 = dict(assoc="projective", assoc_window=3 * S, active_capacity=3 * S // 2, model_rows="dense")
+    return (
+        ("scannet projective (cell 4)", "scannet", (2, 2), 16 * S, cell4),
+        ("scannet gated (cell 7)", "scannet", (2, 2), 16 * S, dict(block_size=GATE_BLOCK)),
+        ("scannet projective dense across ranks", "scannet", (1, 4), 4 * S, cell4),
+        ("scannet gated across ranks", "scannet", (1, 4), 4 * S, dict(block_size=GATE_BLOCK)),
+        ("golden window rows", "golden", (1, 4), 3 * G, dict(assoc_window=2 * G, window_merge="rows")),
+        ("golden window dense", "golden", (1, 4), 3 * G, dict(assoc_window=2 * G, window_merge="dense")),
+        ("golden fusion=False", "golden", (1, 4), 2 * G, dict(fusion=False)),
+        ("golden reuse_actives=False", "golden", (1, 4), 2 * G, dict(reuse_actives=False)),
+        ("golden projective gather", "golden", (1, 4), 2 * G, dict(assoc="projective", model_rows="gather")),
+    )
+
+
+def _option_clips(dev):
+    """Phase 28's inputs on ``dev``: the ScanNet geometry at L=16 and the
+    golden clip at ``OPTION_FRAMES``."""
+    return {"scannet": _on(dev, *_scannet_clip(16)), "golden": _on(dev, *_golden_clip(OPTION_FRAMES))}
+
+
+def _slam_opts(dev, kw):
+    """The entry point's options: ``ICPSLAM`` for aggregate mapping, else
+    ``PointFusion``."""
+    from gradslam_tpu_torch import ICPSLAM
+
+    if kw.get("fusion") is False:
+        return ICPSLAM(device=dev, **{k: v for k, v in kw.items() if k != "fusion"}).opts
+    return _fusion_opts(dev, **kw)
+
+
+def _option_launches(clip_L, kw):
+    """A rank's launches in a phase 28 run: one process's."""
+    return {"knn": 0 if kw.get("assoc") == "projective" else (clip_L - 1) * 40,
+            "winner": 0 if kw.get("fusion") is False else clip_L}
+
+
+def _rank_options(dev, rank, res, out):
+    """Phase 28 (four gloo ranks): ``sharded_slam`` of each of
+    :func:`_option_runs`; rank 0 writes the assembled arenas and poses."""
+    from gradslam_tpu_torch.parallel import make_mesh, sharded_slam, unshard_batch, unshard_map_state
+
+    clips, meshes = _option_clips(dev), {}
+    for n, (key, clip, shape, cap, kw) in enumerate(_option_runs()):
+        if shape not in meshes:
+            meshes[shape] = make_mesh(data=shape[0], map_=shape[1], device=dev)
+        mesh, opts = meshes[shape], _slam_opts(dev, kw)
+        (m, p), *rec = _recorded(lambda: sharded_slam(mesh, *clips[clip], None, opts, cap))
+        _record(res, key, *rec)
+        res[key]["shard_shape"] = list(m.data.shape)
+        g, pg = unshard_map_state(mesh, m), unshard_batch(mesh, p)
+        if rank == 0:
+            for name, x in (("data", g.data), ("num_points", g.num_points), ("poses", pg)):
+                np.save(out / f"options{n}_{name}.npy", x.cpu().numpy())
+
+
+RANK_PHASES = {"nccl": _rank_nccl, "map": _rank_map, "pair": _rank_pair, "options": _rank_options}
 
 
 def _rank_main(argv) -> int:
@@ -2654,8 +2742,8 @@ def map_phase(dev, smi):
 
 
 def pair_phases(smi, started):
-    """Phases 24, 26 and 27: one pair of gloo ranks on the card, started by
-    ``_start_ranks("pair", 2)``."""
+    """Phases 24, 26, 27 and 29: one pair of gloo ranks on the card, started
+    by ``_start_ranks("pair", 2)``."""
     (r0, r1), _ = _wait_ranks(started)
     secs = time.perf_counter() - started[-1]
     launches = {}
@@ -2696,7 +2784,85 @@ def pair_phases(smi, started):
            "sharded_train_step: the ranks' parameters differ")
     _check_launches("train step", t["launches"], {"knn": 2 * 40, "winner": 3})
     launches["sharded_train_step golden L=3 per rank"] = t["launches"]
-    _log(f"pair phases (pipeline, sharded refinement, train step): {secs:.1f} s (the ranks' start included) on {smi}")
+    launches["sharded_train_step map=2 golden L=3 per rank"] = train_map_phase(r0, r1)
+    _log(f"pair phases (pipeline, sharded refinement, train steps): {secs:.1f} s (the ranks' start included) on {smi}")
+    return launches
+
+
+def train_map_phase(r0, r1):
+    """Phase 29: two ``sharded_train_step`` steps over ``make_mesh(data=1,
+    map_=2)``: each step's loss within 1e-6 relative of one process's
+    ``slam_loss`` at the parameters the step started from, the parameters
+    within 1e-5 relative of one process's SGD steps, the scale moved."""
+    t = r0["train step map"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(t["loss"], t["same_loss"]))
+    param_err = max(abs(a - b) / abs(b) for k in ("scale", "bias") for a, b in zip(t[k], t[f"ref_{k}"]))
+    move_err = max(abs(a - b) / max(abs(b - start), 1e-12)
+                   for k, start in (("scale", 1.0), ("bias", 0.0)) for a, b in zip(t[k], t[f"ref_{k}"]))
+    _log(f"sharded_train_step map=2 golden B=2 L=3, 2 steps, lr {TRAIN_LR}: loss {t['loss']} vs one process at "
+         f"the same parameters {t['same_loss']} (along its own steps {t['ref_loss']}), scale {t['scale']} vs "
+         f"{t['ref_scale']}, bias {t['bias']} vs {t['ref_bias']}; relative "
+         f"gaps loss {loss_err!r}, parameters {param_err!r}, parameter moves {move_err!r}; step {t['seconds']:.3f} s; "
+         f"launches per rank (second step) {t['launches']}")
+    _check(loss_err <= 1e-6 and param_err <= 1e-5,
+           f"sharded_train_step map=2: loss {loss_err}, parameters {param_err} against one process")
+    _check(t["scale"][0] != 1.0, "sharded_train_step map=2: the scale did not move (zero gradient)")
+    _check(r1["train step map"]["scale"] == t["scale"] and r1["train step map"]["bias"] == t["bias"],
+           "sharded_train_step map=2: the ranks' parameters differ")
+    _check_launches("train step map", t["launches"], {"knn": 2 * 40, "winner": 3})
+    return t["launches"]
+
+
+def options_phase(dev, smi):
+    """Phase 28: four gloo ranks on the card, ``sharded_slam`` on each of
+    :func:`_option_runs`, bit for bit against one process's
+    ``slam_sequence`` of the whole batch (0 arena elements and 0 poses
+    differ, ``num_points`` equal), each rank's shard (B/data, CAP/map, 12),
+    its launches one process's, every kernel call of every rank bit-equal
+    to its plain version."""
+    import shutil
+
+    from gradslam_tpu_torch.slam import slam_sequence
+
+    t0 = time.perf_counter()
+    started = _start_ranks("options", 4)
+    try:  # the references run while the ranks start
+        clips, refs = _option_clips(dev), []
+        for key, clip, shape, cap, kw in _option_runs():
+            m, p = slam_sequence(*clips[clip], None, _slam_opts(dev, kw), cap)
+            refs.append((m.data.cpu(), m.num_points.tolist(), p.cpu()))
+    except BaseException:
+        _stop_ranks(started)
+        raise
+    results, out = _wait_ranks(started)
+    secs = time.perf_counter() - t0
+    launches = {}
+    try:
+        for n, ((key, clip, (data, map_), cap, kw), (ref_data, ref_npts, ref_poses)) in enumerate(
+                zip(_option_runs(), refs)):
+            B, L, H, W = clips[clip][0].shape[:4]
+            got, npts, poses = (np.load(out / f"options{n}_{k}.npy") for k in ("data", "num_points", "poses"))
+            dd, pd = _diff(got, ref_data), _diff(poses, ref_poses)
+            per = [r[key]["launches"] for r in results]
+            shapes = [r[key]["shard_shape"] for r in results]
+            last = sorted({int(x) // (cap // map_) for x in npts - 1})
+            _log(f"map axis {key} B={B} L={L} {H}x{W} CAP={cap} mesh data={data} x map={map_} {kw}: shards "
+                 f"{shapes[0]}; num_points {npts.tolist()} vs one process {ref_npts} (last live row on map rank "
+                 f"{last}); differing elements arena {dd[0]} of {got.size} (max |d| {dd[1]!r}), poses {pd[0]} "
+                 f"(max |d| {pd[1]!r}); run {[round(r[key]['seconds'], 3) for r in results]} s a rank; launches per "
+                 f"rank {per}")
+            _check(all(s == [B // data, cap // map_, 12] for s in shapes), f"{key}: shard shapes {shapes}")
+            _check(npts.tolist() == ref_npts, f"{key}: num_points {npts} vs {ref_npts}")
+            _check(dd[0] == 0 and pd[0] == 0, f"{key}: arena {dd}, poses {pd} against one process, not bit-equal")
+            # every run in an arena of at most 4*H*W rows puts live rows past map rank 0
+            _check(cap > 4 * H * W or max(last) > 0, f"{key}: every live row on map rank 0")
+            for p in per:
+                _check_launches(f"map axis {key}", p, _option_launches(L, kw))
+            launches[f"map axis {key} per rank"] = per[0]
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    _log(f"map axis options: phase {secs:.1f} s (the ranks' start included; gloo on one shared card: "
+         f"correctness, not speed) on {smi}")
     return launches
 
 
@@ -2807,6 +2973,7 @@ def main() -> int:
         for s in started:
             _stop_ranks(s)
     by_path.update(map_phase(dev, smi))
+    by_path.update(options_phase(dev, smi))
     for name, entry in entries.items():
         # launches: the ScanNet geometry's run of the path each kernel is
         # timed for; every path's count beside it

@@ -8,14 +8,16 @@ the map arena partitioned over its 'map' axis: each rank holds a
 candidates and select the fusion winners per rank and across the group
 (:mod:`gradslam_tpu_torch.slam.mapshard`); every cross-rank step is an
 ``all_reduce`` (an owner-placed sum or a min), so the result is that of one
-device.
+device, on every :class:`SLAMOptions` mapping path.
 
 The end-to-end stretch goal: optimize depth-calibration parameters by
 backpropagating a trajectory loss through the whole SLAM run (odometry and
-fusion), one device (:func:`slam_loss`) or the batch over 'data'
+fusion), one device (:func:`slam_loss`) or over the mesh
 (:func:`sharded_train_step`). Neither kernel of the forward has a backward:
 the KNN outputs are detached and the fusion winners are integers, so
-autograd differentiates the gathers, solves and merges around them.
+autograd differentiates the gathers, solves and merges around them, and,
+under a map axis, the owner-placed sums, whose gradient is the sum of the
+ranks' cotangents.
 """
 
 from __future__ import annotations
@@ -35,9 +37,6 @@ __all__ = [
     "sharded_slam",
     "sharded_train_step",
 ]
-
-A14C = "ROADMAP item A14c"
-
 
 class DepthCalibParams(nn.Module):
     """Differentiable sensor-calibration parameters: the observed depth
@@ -67,11 +66,13 @@ def slam_loss(
     gt_poses: torch.Tensor,
     opts: SLAMOptions,
     capacity: int,
+    shard=None,
 ) -> torch.Tensor:
     """Trajectory loss after applying depth calibration: the mean squared
     position error of the recovered (B, L) trajectory against ``gt_poses``,
-    differentiable end to end through odometry and fusion."""
-    _, poses = slam_sequence(rgb_seq, params(depth_seq), intrinsics, None, opts, capacity)
+    differentiable end to end through odometry and fusion. ``shard``: as in
+    :func:`slam_sequence`; the loss is then the same on every rank."""
+    _, poses = slam_sequence(rgb_seq, params(depth_seq), intrinsics, None, opts, capacity, shard=shard)
     return ((poses[..., :3, 3] - gt_poses[..., :3, 3]) ** 2).mean()
 
 
@@ -88,11 +89,10 @@ def sharded_slam(mesh: Mesh, rgb_seq, depth_seq, intrinsics, poses_seq, opts: SL
     'data' axis and the map arena partitioned over its 'map' axis.
 
     Every rank calls it with the same global (B, L, ...) inputs and runs its
-    data group's batch slice. With ``map == 1`` that is :func:`slam_sequence`
-    on the slice, on every :class:`SLAMOptions` path. With ``map > 1`` map
-    rank ``m`` holds the global slots ``[m*CAP/map, (m+1)*CAP/map)``; that
-    runs the exact full-arena fusion path (``PointFusion()``'s mapping) and
-    raises ``ValueError`` for the others (ROADMAP item A14b).
+    data group's batch slice: :func:`slam_sequence` on the slice, on every
+    :class:`SLAMOptions` path. With ``map > 1`` map rank ``m`` holds the
+    global slots ``[m*CAP/map, (m+1)*CAP/map)``, and the result is bit-equal
+    to one process's run of the slice.
 
     Returns:
         (map_state, poses): this rank's shards, ``map_state.data``
@@ -108,25 +108,31 @@ def sharded_slam(mesh: Mesh, rgb_seq, depth_seq, intrinsics, poses_seq, opts: SL
 
 def sharded_train_step(mesh: Mesh, opts: SLAMOptions, capacity: int, lr: float = 1e-2):
     """An SGD step over :class:`DepthCalibParams` with the batch sharded
-    over the mesh's 'data' axis.
+    over the mesh's 'data' axis and the arena over its 'map' axis.
 
     The returned ``step(params, rgb, depth, K, gt_poses) -> (new_params,
     loss)`` takes the global batch on every rank; each data group runs its
     slice's :func:`slam_loss` scaled by ``B_local / B``, the gradients are
-    summed over 'data' (one ``all_reduce``) and one SGD step follows. Every
+    summed over the mesh (one ``all_reduce``) and one SGD step follows. Every
     rank returns the same new parameters and the global loss (the mean over
-    the whole batch). ``map > 1`` needs the map-sharded forward to be
-    differentiable through its collectives: ROADMAP item A14c.
+    the whole batch).
+
+    Under ``map > 1`` every rank of a map group computes the same loss, and
+    the owner-placed sums' backward hands each rank the gradient of the sum
+    of the group's ``map`` copies with respect to its own inputs: the part
+    through its shard and its own copy of the replicated part. Summed over
+    the group that is ``map`` times the loss's gradient, so each rank
+    differentiates its loss divided by ``map``.
     """
-    if mesh.shape["map"] > 1:
-        raise ValueError(f"sharded_train_step over a map axis of {mesh.shape['map']} ranks is {A14C}")
+    m = mesh.shape["map"]
 
     def step(params: DepthCalibParams, rgb, depth, K, gt_poses):
         B = rgb.shape[0]
         rgb_l, depth_l, K_l, gt_l = shard_batch(mesh, (rgb, depth, K, gt_poses))
-        loss = slam_loss(params, rgb_l, depth_l, K_l, gt_l, opts, capacity) * (rgb_l.shape[0] / B)
-        grads = torch.autograd.grad(loss, [params.scale, params.bias])
-        g = mesh.all_reduce(torch.stack(grads), "data")
+        shard = mesh.map_shard(capacity) if m > 1 else None
+        loss = slam_loss(params, rgb_l, depth_l, K_l, gt_l, opts, capacity, shard=shard) * (rgb_l.shape[0] / B)
+        grads = torch.autograd.grad(loss / m, [params.scale, params.bias])
+        g = mesh.all_reduce(torch.stack(grads))
         total = mesh.all_reduce(loss.detach().clone(), "data")
         new = DepthCalibParams(device=params.scale.device)
         with torch.no_grad():

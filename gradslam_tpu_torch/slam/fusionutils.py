@@ -33,7 +33,6 @@ from ..ops.masking import compact_masked
 from ..ops.winner import pixel_winner, winner_keys
 from ..structures.maparena import (
     MapState,
-    append_rows_to_map,
     append_to_map,
     init_map,
     map_mask,
@@ -41,6 +40,7 @@ from ..structures.maparena import (
     pack_rows,
     scatter_rows,
 )
+from .mapshard import MapShard
 
 __all__ = [
     "get_alpha",
@@ -120,6 +120,55 @@ def project_map_to_frame(map_state: MapState, pose, intrinsics, H: int, W: int):
     return _project_points_to_frame(map_state.points, map_mask(map_state), pose, intrinsics, H, W)
 
 
+def _pairwise_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x.sum(dim)`` as a tree of elementwise adds (the axis zero-padded to
+    a power of two, then halved): the bits of each sum do not depend on the
+    sizes of the other axes, as a reduce kernel's may on the card, so a
+    rank's blocks get one device's centroids."""
+    n = x.shape[dim]
+    p = 1 << max(n - 1, 0).bit_length()
+    if p != n:
+        pad = list(x.shape)
+        pad[dim] = p - n
+        x = torch.cat([x, x.new_zeros(pad)], dim=dim)
+    while x.shape[dim] > 1:
+        h = x.shape[dim] // 2
+        x = x.narrow(dim, 0, h) + x.narrow(dim, h, h)
+    return x.squeeze(dim)
+
+
+def _visible_blocks(pts, live_blk, pose, intrinsics, H: int, W: int) -> torch.Tensor:
+    """(B, NB) mask of the blocks (B, NB, BLK, 3) points with their
+    (B, NB, BLK) live mask whose bounding sphere over their live rows can
+    project into the frame: a conservative sphere-vs-frustum test."""
+    lv = live_blk[..., None].to(pts.dtype)
+    n_in_block = torch.clamp(lv.sum(dim=2), min=1.0)  # (B, NB, 1), exact
+    centroid = _pairwise_sum(pts * lv, 2) / n_in_block  # (B, NB, 3)
+    radius = torch.sqrt(
+        torch.amax(((pts - centroid[:, :, None]) ** 2).sum(-1) * lv[..., 0], dim=2)
+    )  # (B, NB)
+    block_live = live_blk.any(dim=2)
+
+    # conservative sphere-vs-frustum test in camera space
+    c_cam = transform_pointcloud(centroid, inverse_transformation(pose))
+    z = c_cam[..., 2]
+    K = intrinsics[:, 0] if intrinsics.dim() == 4 else intrinsics
+    fx, fy = K[..., 0, 0][:, None], K[..., 1, 1][:, None]
+    cx, cy = K[..., 0, 2][:, None], K[..., 1, 2][:, None]
+    # a sphere crossing or behind the image plane is visible
+    near = z - radius <= 1e-3
+    z_safe = torch.clamp(z - radius, min=1e-3)
+    z_div = torch.where(z != 0, z, torch.ones_like(z))
+    u = (c_cam[..., 0] * fx + z * cx) / z_div
+    v = (c_cam[..., 1] * fy + z * cy) / z_div
+    mu = radius * fx.abs() / z_safe
+    mv = radius * fy.abs() / z_safe
+    in_view = (
+        (u + mu > -1.0) & (u - mu < W + 1.0) & (v + mv > -1.0) & (v - mv < H + 1.0) & (z + radius > 0)
+    )
+    return block_live & (in_view | near)
+
+
 def visible_subarena(map_state: MapState, pose, intrinsics, H: int, W: int, block_size: int,
                      visible_capacity: int):
     """Block-gated view of the arena: the blocks whose bounding sphere can
@@ -146,32 +195,7 @@ def visible_subarena(map_state: MapState, pose, intrinsics, H: int, W: int, bloc
     with torch.no_grad():
         pts = torch.nn.functional.pad(data[..., 0:3], (0, 0, 0, pad)).reshape(B, NB, BLK, 3)
         live_blk = torch.nn.functional.pad(live, (0, pad)).reshape(B, NB, BLK)
-        lv = live_blk[..., None].to(pts.dtype)
-        n_in_block = torch.clamp(lv.sum(dim=2), min=1.0)  # (B, NB, 1)
-        centroid = (pts * lv).sum(dim=2) / n_in_block  # (B, NB, 3)
-        radius = torch.sqrt(
-            torch.amax(((pts - centroid[:, :, None]) ** 2).sum(-1) * lv[..., 0], dim=2)
-        )  # (B, NB)
-        block_live = live_blk.any(dim=2)
-
-        # conservative sphere-vs-frustum test in camera space
-        c_cam = transform_pointcloud(centroid, inverse_transformation(pose))
-        z = c_cam[..., 2]
-        K = intrinsics[:, 0] if intrinsics.dim() == 4 else intrinsics
-        fx, fy = K[..., 0, 0][:, None], K[..., 1, 1][:, None]
-        cx, cy = K[..., 0, 2][:, None], K[..., 1, 2][:, None]
-        # a sphere crossing or behind the image plane is visible
-        near = z - radius <= 1e-3
-        z_safe = torch.clamp(z - radius, min=1e-3)
-        z_div = torch.where(z != 0, z, torch.ones_like(z))
-        u = (c_cam[..., 0] * fx + z * cx) / z_div
-        v = (c_cam[..., 1] * fy + z * cy) / z_div
-        mu = radius * fx.abs() / z_safe
-        mv = radius * fy.abs() / z_safe
-        in_view = (
-            (u + mu > -1.0) & (u - mu < W + 1.0) & (v + mv > -1.0) & (v - mv < H + 1.0) & (z + radius > 0)
-        )
-        blk_idx, blk_valid = compact_masked(block_live & (in_view | near), V)  # (B, V)
+        blk_idx, blk_valid = compact_masked(_visible_blocks(pts, live_blk, pose, intrinsics, H, W), V)  # (B, V)
 
         offs = torch.arange(BLK, dtype=torch.int32, device=data.device)
         sub_slots = (blk_idx[:, :, None] * BLK + offs).reshape(B, V * BLK)
@@ -182,6 +206,64 @@ def visible_subarena(map_state: MapState, pose, intrinsics, H: int, W: int, bloc
     sub_data = _take(data, torch.clamp(sub_slots, max=CAP - 1))
     if pad:
         sub_data = torch.where(in_arena[..., None], sub_data, 0.0)
+    return sub_data, sub_slots, sub_live
+
+
+def _visible_subarena_shard(map_state: MapState, pose, intrinsics, H: int, W: int, block_size: int,
+                            visible_capacity: int, shard):
+    """:func:`visible_subarena` on a map shard: this rank's part of the
+    global arena's sub-arena, the rows it holds of the global arena's
+    ``visible_capacity`` lowest-index visible blocks.
+
+    A rank tests the blocks it holds rows of. A block that straddles ranks
+    (``rows % block_size != 0``) is first assembled on each of them from its
+    owners' rows (one owner-placed sum), so its centroid and radius are one
+    device's bits. The block flags meet in one (B, NB) owner-placed sum,
+    each from the rank that holds the block's first row; every rank
+    compacts that global list and gathers the rows it holds of the listed
+    blocks, ``VR = min(visible_capacity, blocks it holds rows of)`` blocks.
+
+    Returns:
+        (sub_data (B, VR*BLK, 12) local rows, sub_slots (B, VR*BLK) int32
+        global slots, ascending on the blocks in use, sub_live
+        (B, VR*BLK) bool); rows of other ranks, of padding and of unused
+        block entries are dead, and those of other ranks and of padding
+        are zero.
+    """
+    data = map_state.data
+    B, R, _ = data.shape
+    BLK, CAP, off = block_size, shard.capacity, shard.offset
+    NB = -(-CAP // BLK)
+    b0, b1 = off // BLK, -(-(off + R) // BLK)  # the blocks this rank holds rows of
+    lead, trail = off - b0 * BLK, b1 * BLK - off - R
+    # blocks whose rows (inside the arena) lie on more than one rank: the same list everywhere
+    shared = [j for j in range(NB) if (j * BLK) // R != (min((j + 1) * BLK, CAP) - 1) // R]
+    with torch.no_grad():
+        pts = torch.nn.functional.pad(data[..., 0:3], (0, 0, lead, trail)).reshape(B, b1 - b0, BLK, 3)
+        live_blk = torch.nn.functional.pad(shard.live(map_state), (lead, trail)).reshape(B, b1 - b0, BLK)
+        if shared:
+            mine = [(s, j - b0) for s, j in enumerate(shared) if b0 <= j < b1]
+            buf = data.new_zeros((B, len(shared), BLK, 4))
+            for s, k in mine:
+                buf[:, s] = torch.cat([pts[:, k], live_blk[:, k, :, None].to(pts.dtype)], dim=-1)
+            buf = shard.assemble(buf)
+            for s, k in mine:
+                pts[:, k], live_blk[:, k] = buf[:, s, :, 0:3], buf[:, s, :, 3] > 0
+        vis = _visible_blocks(pts, live_blk, pose, intrinsics, H, W)
+        first = torch.arange(b0, b1, device=data.device) * BLK >= off  # the block's first row is here
+        flags = torch.zeros((B, NB), dtype=torch.int32, device=data.device)
+        flags[:, b0:b1] = (vis & first).to(torch.int32)
+        blk_idx, blk_valid = compact_masked(shard.all_reduce(flags) > 0, visible_capacity)
+        sel = torch.zeros((B, NB + 1), dtype=torch.bool, device=data.device)
+        sel = sel.scatter(1, torch.where(blk_valid, blk_idx, NB).long(), True)[:, b0:b1]
+        loc, loc_valid = compact_masked(sel, min(visible_capacity, b1 - b0))  # (B, VR)
+        VR = loc.shape[1]
+        offs = torch.arange(BLK, dtype=torch.int32, device=data.device)
+        sub_slots = ((loc + b0)[:, :, None] * BLK + offs).reshape(B, VR * BLK)
+        own = shard.owns(sub_slots)
+        in_use = loc_valid[:, :, None].expand(B, VR, BLK).reshape(B, VR * BLK)
+        sub_live = own & in_use & (sub_slots < map_state.num_points[:, None])
+    sub_data = torch.where(own[..., None], _take(data, shard.local(sub_slots)), 0.0)
     return sub_data, sub_slots, sub_live
 
 
@@ -247,48 +329,45 @@ def _merge_rows(rows, fa, alpha):
     )
 
 
-def _winner_slots(view, live, frame_attr, pose, intrinsics, dist_th, dot_th, H, W, A, CAP, compact,
-                  src_slots=None, shard=None):
+def _winner_slots(view, live, frame_attr, pose, intrinsics, dist_th, dot_th, H, W, A, compact, shard,
+                  src_slots=None, win=None):
     """Projective association and winner selection against a map view: the
     arena, its prefix window, or the block-gated sub-arena whose rows sit
-    at arena slots ``src_slots`` (None: view row == arena slot).
+    at arena slots ``src_slots`` (None: view row == local row).
 
     ``compact`` compacts the active rows into the (B, A) buffer first;
-    without it the view rows are the candidates (a prefix window no larger
-    than the buffer).
+    without it the view rows are the candidates (a prefix window of ``win``
+    rows, no larger than the buffer).
 
-    With a :class:`~gradslam_tpu_torch.slam.mapshard.MapShard` the view is
-    this rank's part of the arena: the buffer is the global one, of which
-    this rank selects among the rows it holds, and the group then takes
-    the least key of the ranks' winners (:meth:`MapShard.winner`).
+    The view is this rank's part of the arena's (``shard``, a
+    :class:`~gradslam_tpu_torch.slam.mapshard.MapShard`; the whole of it on
+    one process): its local rows ``[0, NA)`` (``live`` False past the
+    window) or its part of the gated sub-arena. The buffer is the global
+    one, of which this rank selects among the rows it holds, and the group
+    then takes the least key of the ranks' winners (:meth:`MapShard.winner`).
 
     Returns:
         (arena_slot, avalid, wslots): the (B, A) compacted arena slots and
-        validity (or the view's, uncompacted) and the (B, H*W) arena slot
-        of the winner at each pixel, CAP where none.
+        validity (or the window's, uncompacted) and the (B, H*W) arena slot
+        of the winner at each pixel, CAP where none; the same on every rank.
     """
     B, NA, _ = view.shape
-    HW = H * W
+    HW, CAP = H * W, shard.capacity
     h, w, active = _project_points_to_frame(view[..., 0:3], live, pose, intrinsics, H, W)
-    if shard is not None:
-        idx, avalid, cand_slots, cand_valid = shard.compact(active, A)
+    if compact:
+        idx, avalid, cand_slots, cand_valid = shard.compact(active, A, src_slots)
         ma = _take(view, idx)
-        arena_slot = idx + shard.offset
-        ha, wa, _ = _project_points_to_frame(ma[..., 0:3], torch.ones_like(avalid), pose, intrinsics, H, W)
-        pixa = ha * W + wa
-    elif compact:
-        idx, avalid = compact_masked(active, A)
-        ma = _take(view, idx)
-        arena_slot = idx if src_slots is None else src_slots.gather(1, idx.long())
+        arena_slot = idx + shard.offset if src_slots is None else src_slots.gather(1, idx.long())
         # the pixel again from the gathered rows: the same math on the same
         # values as the projection above
         ha, wa, _ = _project_points_to_frame(ma[..., 0:3], torch.ones_like(avalid), pose, intrinsics, H, W)
         pixa = ha * W + wa
+        sorted_slots = torch.where(avalid, arena_slot, CAP)
     else:
-        ma = view
-        pixa = h * W + w
-        arena_slot = torch.arange(NA, dtype=torch.int32, device=view.device).expand(B, NA)
-        avalid = active
+        ma, pixa, avalid = view, h * W + w, active
+        arena_slot = sorted_slots = shard.slots(NA, view.device).expand(B, NA)
+        cand_slots = torch.arange(win, dtype=torch.int32, device=view.device).expand(B, win)
+        cand_valid = shard.assemble_prefix(active, win)
     mp, mn = ma[..., 0:3], ma[..., 3:6]
     fa = _take(frame_attr, pixa)
     fp, fn = fa[..., 0:3], fa[..., 3:6]
@@ -297,15 +376,12 @@ def _winner_slots(view, live, frame_attr, pose, intrinsics, dist_th, dot_th, H, 
     ray = ((mp - fp) ** 2).sum(-1)
     k_hi, k_lo = winner_keys(ma[..., 9], ray)
     wslots = pixel_winner(pix_seg, k_hi, k_lo, arena_slot, HW, CAP)
-    if shard is not None:
-        wslots = shard.winner(wslots, torch.where(avalid, arena_slot, CAP), k_hi, k_lo)
-        return cand_slots, cand_valid, wslots
-    return arena_slot, avalid, wslots
+    return cand_slots, cand_valid, shard.winner(wslots, sorted_slots, k_hi, k_lo)
 
 
 def _fusion_window_dense(map_state, view, live, frame_attr, valid_depth, pose, intrinsics,
                          dist_th, dot_th, H, W, A, compact, return_active, dense_model_rows,
-                         need_active_set=True):
+                         need_active_set, shard, win):
     """Capacity-windowed fusion with the merge computed densely over the view.
 
     Every view row computes the value it would get as a winner from its own
@@ -317,9 +393,15 @@ def _fusion_window_dense(map_state, view, live, frame_attr, valid_depth, pose, i
     active rows when the caller reuses them as odometry candidates
     (``need_active_set``), else the gated rows, which are the only rows
     that can win, so a full buffer drops nothing that could.
+
+    The view is this rank's local rows ``[0, NT)`` of the ``win``-row window
+    (``live`` False past it): the candidate list is the global one
+    (:meth:`MapShard.compact`), the winners the group's
+    (:meth:`MapShard.winner`), and each rank merges the winners it holds;
+    the model rows are assembled from their owners.
     """
     B, NT, _ = view.shape
-    CAP = map_state.capacity
+    CAP, off = shard.capacity, shard.offset
     HW = H * W
     dev = view.device
 
@@ -332,52 +414,53 @@ def _fusion_window_dense(map_state, view, live, frame_attr, valid_depth, pose, i
     pix_seg = torch.where(gated, pix, HW)
     k_hi, k_lo = winner_keys(view[..., 9], ((mp - fp) ** 2).sum(-1))
     if compact:
-        arena_slot, avalid = compact_masked(active if need_active_set else gated, A)
-        idx = arena_slot.long()
-        k_pix = torch.where(avalid, pix_seg.gather(1, idx), HW)
+        loc, kvalid, arena_slot, avalid = shard.compact(active if need_active_set else gated, A)
+        idx = loc.long()
+        k_slot = loc + off
+        k_pix = torch.where(kvalid, pix_seg.gather(1, idx), HW)
         k_hi, k_lo = k_hi.gather(1, idx), k_lo.gather(1, idx)
-        k_slot = arena_slot
+        sorted_slots = torch.where(kvalid, k_slot, CAP)
     else:
         k_pix = pix_seg
-        arena_slot = k_slot = torch.arange(NT, dtype=torch.int32, device=dev).expand(B, NT)
-        avalid = active
+        k_slot = sorted_slots = shard.slots(NT, dev).expand(B, NT)
+        arena_slot = torch.arange(win, dtype=torch.int32, device=dev).expand(B, win)
+        avalid = shard.assemble_prefix(active, win)
     model_img = pixel_winner(k_pix, k_hi, k_lo, k_slot, HW, CAP)  # winners only
+    model_img = shard.winner(model_img, sorted_slots, k_hi, k_lo)
 
     # per-view-row winner mask: one scatter of ones at the table's slots
-    has_win = model_img < CAP
+    mine = (model_img >= off) & (model_img < off + NT)
     wmask = torch.zeros((B, NT + 1), dtype=torch.bool, device=dev)
-    wmask = wmask.scatter(1, torch.where(has_win, model_img, NT).long(), True)[:, :NT]
+    wmask = wmask.scatter(1, torch.where(mine, model_img - off, NT).long(), True)[:, :NT]
 
     new_view = torch.where(wmask[..., None], _merge_rows(view, fa, fa[..., 9:10]), view)
     data = torch.cat([new_view, map_state.data[:, NT:]], dim=1)
     win_rows = None
     if return_active and dense_model_rows:
-        win_rows = _take(new_view, torch.clamp(model_img, max=NT - 1))
+        win_rows = _take(new_view[..., 0:6], torch.clamp(model_img - off, 0, NT - 1))
+        win_rows = shard.assemble(win_rows, mine[..., None])
     return _append_frame(map_state, data, frame_attr, valid_depth, model_img, win_rows,
-                         return_active, arena_slot, avalid, dense_model_rows)
+                         return_active, arena_slot, avalid, dense_model_rows, shard)
 
 
 def _append_frame(map_state, data, frame_attr, valid_depth, model_img, win_rows, return_active,
-                  arena_slot, avalid, dense_model_rows, shard=None):
+                  arena_slot, avalid, dense_model_rows, shard):
     """Appends every valid pixel without a winner to the merged arena
-    ``data`` and builds the returned tuple.
+    ``data`` (this rank's part of it; the slots are global) and builds the
+    returned tuple.
 
     ``model_img`` (B, H*W) holds the winner slot per pixel (CAP where none)
-    and ``win_rows`` (B, H*W, 12) the merged row there (read only for the
-    model rows). With a ``shard``, ``data`` is this rank's part of the
-    arena and the slots are global.
+    and ``win_rows`` (B, H*W, 6) the merged row's point and normal there
+    (read only for the model rows).
     """
     B, HW, _ = frame_attr.shape
-    CAP = map_state.capacity if shard is None else shard.capacity
+    CAP = shard.capacity
     has_win = model_img < CAP
     new_mask = valid_depth.reshape(B, HW) & ~has_win
     # appended points carry their frame label at confidence alpha
     tail = frame_attr[..., 9:10] if frame_attr.shape[-1] > 10 else frame_attr.new_zeros((B, HW, 2))
     frame_rows = torch.cat([frame_attr, tail], dim=-1)
-    if shard is None:
-        out = append_rows_to_map(MapState(data, map_state.num_points), frame_rows, new_mask)
-    else:
-        out = shard.append_rows(MapState(data, map_state.num_points), frame_rows, new_mask)
+    out = shard.append_rows(MapState(data, map_state.num_points), frame_rows, new_mask)
     if not return_active:
         return out
     app_slot = map_state.num_points[:, None] + torch.cumsum(new_mask, dim=1, dtype=torch.int32) - 1
@@ -387,7 +470,7 @@ def _append_frame(map_state, data, frame_attr, valid_depth, model_img, win_rows,
         return out, (arena_slot, avalid, img)
     # model rows: the arena row at each pixel's model slot, from the buffers
     # in hand (winner pixels: the merged row; appended pixels: the frame row)
-    mr6 = torch.where(has_win[..., None], win_rows[..., 0:6], 0.0)
+    mr6 = torch.where(has_win[..., None], win_rows, 0.0)
     mr6 = torch.where(app_valid[..., None], frame_rows[..., 0:6], mr6)
     tval = (has_win | app_valid).to(mr6.dtype)
     return out, (arena_slot, avalid, img, torch.cat([mr6, tval[..., None]], dim=-1))
@@ -452,10 +535,15 @@ def fusion_update_compact(
             gate or winner key, so channels 0-9 are those of a run without.
         shard: a :class:`~gradslam_tpu_torch.slam.mapshard.MapShard` when
             ``map_state`` is this rank's part of an arena partitioned over a
-            group (every rank of the group calls with the same frame): the
-            exact full-arena path only (no ``block_size``, window or model
-            rows). The returned set and model image are global and the same
-            on every rank; the new state is this rank's part.
+            group (every rank of the group calls with the same frame), on
+            every path above (None: :meth:`MapShard.whole`, one process).
+            The candidate lists are the global ones, the winners the
+            group's, and the winner's owner merges it; block gating gathers
+            the rows the rank holds of the global visible blocks
+            (:func:`_visible_subarena_shard`), and a window covers the
+            rank's rows below it. The returned set, model image and model
+            rows are global and the same on every rank; the new state is
+            this rank's part.
 
     Returns:
         The new :class:`MapState`; with ``return_active`` also
@@ -477,58 +565,45 @@ def fusion_update_compact(
         attrs.append(frame_labels.reshape(B, H, W, 1).to(alpha_img.dtype))
     frame_attr = torch.cat(attrs, dim=-1).reshape(B, HW, -1)
 
-    if shard is not None:
-        if block_size is not None or dense_model_rows or _resolve_assoc_window(assoc_window, shard.capacity):
-            raise ValueError("a map-sharded fusion step runs the exact full-arena path only (ROADMAP item A14b)")
-        CAP = shard.capacity
-        view = map_state.data
-        arena_slot, avalid, wslots = _winner_slots(
-            view, shard.live(map_state), frame_attr, pose, intrinsics, dist_th, dot_th, H, W, A, CAP, True,
-            shard=shard,
-        )
-        # the winner's owner merges it
-        wvalid = wslots < CAP
-        alpha = torch.where(wvalid[..., None], frame_attr[..., 9:10], 0.0)
-        rows = shard.local(wslots)
-        mrows = _merge_rows(_take(view, rows), frame_attr, alpha)
-        data = scatter_rows(view, rows, mrows, wvalid & shard.owns(wslots))
-        return _append_frame(map_state, data, frame_attr, valid_depth, wslots, None, return_active,
-                             arena_slot, avalid, False, shard=shard)
-
-    win = None
+    if shard is None:
+        shard = MapShard.whole(CAP)
+    CAP = shard.capacity
+    data = map_state.data
     if block_size is not None:
         vcap = visible_capacity or max(8, (4 * HW + block_size - 1) // block_size)
-        sub, sub_slots, sub_live = visible_subarena(map_state, pose, intrinsics, H, W, block_size, vcap)
+        if shard.n == 1:
+            sub, sub_slots, sub_live = visible_subarena(map_state, pose, intrinsics, H, W, block_size, vcap)
+        else:
+            sub, sub_slots, sub_live = _visible_subarena_shard(
+                map_state, pose, intrinsics, H, W, block_size, vcap, shard
+            )
         arena_slot, avalid, wslots = _winner_slots(
-            sub, sub_live, frame_attr, pose, intrinsics, dist_th, dot_th, H, W, A, CAP, True, sub_slots
+            sub, sub_live, frame_attr, pose, intrinsics, dist_th, dot_th, H, W, A, True, shard, sub_slots
         )
-        view = map_state.data  # the winners' slots are the arena's
     else:
         win = _resolve_assoc_window(assoc_window, CAP)
-        if win is None:
-            view, live, compact = map_state.data, map_mask(map_state), True
-        else:
-            view = map_state.data[:, :win]
-            live = torch.arange(win, dtype=torch.int32, device=view.device)[None, :] < map_state.num_points[:, None]
-            compact = win > A
-            if window_merge == "dense":
-                return _fusion_window_dense(
-                    map_state, view, live, frame_attr, valid_depth, pose, intrinsics, dist_th, dot_th,
-                    H, W, A, compact, return_active, dense_model_rows, need_active_set,
-                )
+        view, live = shard.window(map_state, win)
+        compact = win is None or win > A
+        if win is not None and window_merge == "dense":
+            return _fusion_window_dense(
+                map_state, view, live, frame_attr, valid_depth, pose, intrinsics, dist_th, dot_th,
+                H, W, A, compact, return_active, dense_model_rows, need_active_set, shard, win,
+            )
         arena_slot, avalid, wslots = _winner_slots(
-            view, live, frame_attr, pose, intrinsics, dist_th, dot_th, H, W, A, CAP, compact
+            view, live, frame_attr, pose, intrinsics, dist_th, dot_th, H, W, A, compact, shard, win=win
         )
 
-    # ---- merge: O(H*W), the winner at each pixel with that pixel's frame row
+    # ---- merge: O(H*W), the winner at each pixel with that pixel's frame
+    # row, by the winner's owner (winner slots are distinct)
     wvalid = wslots < CAP
     alpha = torch.where(wvalid[..., None], frame_attr[..., 9:10], 0.0)
-    mrows = _merge_rows(_take(view, torch.clamp(wslots, max=view.shape[1] - 1)), frame_attr, alpha)
-    data = scatter_rows(view, wslots, mrows, wvalid)  # winner slots are distinct
-    if win is not None:  # the writeback stays inside the window
-        data = torch.cat([data, map_state.data[:, win:]], dim=1)
-    return _append_frame(map_state, data, frame_attr, valid_depth, wslots, mrows,
-                         return_active, arena_slot, avalid, dense_model_rows)
+    owned = wvalid & shard.owns(wslots)
+    rows = shard.local(wslots)
+    mrows = _merge_rows(_take(data, rows), frame_attr, alpha)
+    data = scatter_rows(data, rows, mrows, owned)
+    win_rows = shard.assemble(mrows[..., 0:6], owned[..., None]) if return_active and dense_model_rows else None
+    return _append_frame(map_state, data, frame_attr, valid_depth, wslots, win_rows, return_active,
+                         arena_slot, avalid, dense_model_rows, shard)
 
 
 def aggregate_map_dense(
@@ -540,35 +615,24 @@ def aggregate_map_dense(
     valid_depth: torch.Tensor,
     sigma: float = 0.6,
     frame_labels: Optional[torch.Tensor] = None,
+    shard=None,
 ) -> MapState:
     """Append-only map update: every valid-depth pixel is appended. With
     ``frame_labels`` (B, H, W) each point carries its label at confidence
-    alpha in channels 10-11."""
+    alpha in channels 10-11. With a ``shard`` (see
+    :func:`fusion_update_compact`) each rank writes the appended rows it
+    holds (:meth:`MapShard.append_rows`)."""
     B, H, W, _ = frame_vertex_global.shape
     HW = H * W
-    alpha_img = get_alpha(frame_vertex_local, sigma, keepdim=True)
+    alpha = get_alpha(frame_vertex_local, sigma, keepdim=True).reshape(B, HW, 1)
+    gv, gn, rgb = (x.reshape(B, HW, 3) for x in (frame_vertex_global, frame_normal_global, rgb_image))
     if frame_labels is not None:
-        alpha = alpha_img.reshape(B, HW, 1)
-        rows = torch.cat(
-            [
-                frame_vertex_global.reshape(B, HW, 3),
-                frame_normal_global.reshape(B, HW, 3),
-                rgb_image.reshape(B, HW, 3),
-                alpha,
-                frame_labels.reshape(B, HW, 1).to(alpha.dtype),
-                alpha,
-            ],
-            dim=-1,
-        )
-        return append_rows_to_map(map_state, rows, valid_depth.reshape(B, HW))
-    return append_to_map(
-        map_state,
-        frame_vertex_global.reshape(B, HW, 3),
-        frame_normal_global.reshape(B, HW, 3),
-        rgb_image.reshape(B, HW, 3),
-        alpha_img.reshape(B, HW, 1),
-        valid_depth.reshape(B, HW),
-    )
+        rows = torch.cat([gv, gn, rgb, alpha, frame_labels.reshape(B, HW, 1).to(alpha.dtype), alpha], dim=-1)
+    else:
+        rows = pack_rows(gv, gn, rgb, alpha)
+    if shard is None:
+        shard = MapShard.whole(map_state.capacity)
+    return shard.append_rows(map_state, rows, valid_depth.reshape(B, HW))
 
 
 # ---------------------------------------------------------------------------

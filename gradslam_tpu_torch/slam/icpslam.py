@@ -18,7 +18,8 @@ Given a :class:`~gradslam_tpu_torch.slam.mapshard.MapShard` (``shard``),
 the arena is this rank's part of one partitioned by slot over a process
 group: the candidate rows are assembled on every rank of the group, so the
 odometry runs on identical inputs everywhere, and the fusion step selects
-winners per rank and across the group. With ``shard=None`` nothing changes.
+winners per rank and across the group. ``shard=None`` is the whole arena on
+one process (:meth:`MapShard.whole`), through the same code.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ from ..odometry.icputils import (
     point_to_plane_gradICP_projective,
 )
 from ..ops.masking import compact_masked
-from ..structures.maparena import MapState, init_map, map_mask, map_to_pointclouds
+from ..structures.maparena import MapState, init_map, map_to_pointclouds
 from ..structures.rgbdimages import (
     RGBDImages,
     compute_global_normal_map,
@@ -53,6 +54,7 @@ from .fusionutils import (
     aggregate_map_dense,
     fusion_update_compact,
 )
+from .mapshard import MapShard
 
 __all__ = [
     "ICPSLAM",
@@ -149,30 +151,25 @@ def _take_rows(data, idx):
     return torch.gather(data, 1, idx.long()[..., None].expand(-1, -1, data.shape[-1]))
 
 
-def _odometry_candidates(map_state, cand_slots, cand_valid, app_start, win, shard=None):
+def _odometry_candidates(map_state, cand_slots, cand_valid, app_start, win, shard):
     """Candidate rows for localization at the previous pose: the previous
     fusion step's active set plus the rows it appended, which lie
     contiguously at ``[app_start, num_points)``.
 
-    With a ``shard`` each rank writes the rows it holds at their positions
-    and one owner-placed sum assembles them: points and normals only, the
-    channels the odometry reads.
+    Under a map ``shard`` each rank writes the rows it holds at their
+    positions and one owner-placed sum assembles them: points and normals
+    only, the channels the odometry reads.
 
     Returns:
-        (rows (B, A+win, 12), or 6 channels with a shard; valid (B, A+win)
-        bool).
+        (rows (B, A+win, 6); valid (B, A+win) bool).
     """
-    CAP = map_state.capacity if shard is None else shard.capacity
+    CAP = shard.capacity
     win = min(win, CAP)
     start = torch.clamp(app_start, 0, CAP - win)
     slot_n = start[:, None] + torch.arange(win, dtype=torch.int32, device=app_start.device)[None, :]
     valid_n = (slot_n >= app_start[:, None]) & (slot_n < map_state.num_points[:, None])
     valid = torch.cat([cand_valid, valid_n], dim=1)
-    if shard is not None:
-        return shard.gather_rows(map_state.data[..., 0:6], torch.cat([cand_slots, slot_n], dim=1)), valid
-    rows_a = _take_rows(map_state.data, cand_slots)
-    rows_n = _take_rows(map_state.data, slot_n)
-    return torch.cat([rows_a, rows_n], dim=1), valid
+    return shard.gather_rows(map_state.data[..., 0:6], torch.cat([cand_slots, slot_n], dim=1)), valid
 
 
 def _default_tgt_capacity(H, W, ds):
@@ -192,28 +189,36 @@ def _localize(map_state, prev_pose, rgb, depth, intrinsics, opts: SLAMOptions, c
     it, fusion mapping with ``assoc_window`` takes the targets from the
     arena prefix window, as the fusion association does (in aggregate
     mapping the prefix is append history, so the window is ignored there).
+
+    Without ``cand`` each rank of a map ``shard`` (None: one process)
+    projects the rows it holds (of the window, when there is one), the
+    targets of each level are the global compaction of their mask
+    (:meth:`MapShard.compact`) and their rows an owner-placed gather: every
+    rank solves on the same targets.
     """
     B, H, W, _ = rgb.shape
     _, _, gv, _, valid = _frame_maps(rgb, depth, intrinsics, prev_pose, local_maps)
     levels = tuple(opts.pyramid or (opts.dsratio,))
     tgt_caps = tuple(opts.tgt_capacity or _default_tgt_capacity(H, W, ds) for ds in levels)
 
+    if shard is None:
+        shard = MapShard.whole(map_state.capacity)
     if cand is None:
-        win = _resolve_assoc_window(opts.assoc_window, map_state.capacity) if opts.fusion else None
-        if win is None:
-            src_rows, src_live = map_state.data, map_mask(map_state)
-        else:
-            src_rows = map_state.data[:, :win]
-            idx = torch.arange(win, dtype=torch.int32, device=src_rows.device)
-            src_live = idx[None, :] < map_state.num_points[:, None]
+        win = _resolve_assoc_window(opts.assoc_window, shard.capacity) if opts.fusion else None
+        src_rows, src_live = shard.window(map_state, win)
     else:
         src_rows, src_live = _odometry_candidates(map_state, *cand, win=H * W, shard=shard)
     h, w, active = _project_points_to_frame(src_rows[..., 0:3], src_live, prev_pose, intrinsics, H, W)
 
     transform = None
     for ds, tc in zip(levels, tgt_caps):
-        idx, tgt_valid = compact_masked(active & (h % ds == 0) & (w % ds == 0), tc)
-        rows = _take_rows(src_rows, idx)
+        on_grid = active & (h % ds == 0) & (w % ds == 0)
+        if cand is None:
+            _, _, slots, tgt_valid = shard.compact(on_grid, tc)
+            rows = shard.gather_rows(map_state.data[..., 0:6], slots)
+        else:
+            idx, tgt_valid = compact_masked(on_grid, tc)
+            rows = _take_rows(src_rows, idx)
         src = gv[:, ::ds, ::ds].reshape(B, -1, 3)
         src_valid = valid[:, ::ds, ::ds].reshape(B, -1).to(src.dtype)
         common = dict(
@@ -235,20 +240,23 @@ def _localize(map_state, prev_pose, rgb, depth, intrinsics, opts: SLAMOptions, c
 
 
 def _localize_projective(map_state, prev_pose, model_img, rgb, depth, intrinsics,
-                         opts: SLAMOptions, local_maps=None, model_rows=None):
+                         opts: SLAMOptions, local_maps=None, model_rows=None, shard=None):
     """Odometry by projective association against the model image that the
     previous fusion step made at ``prev_pose``: the (B, H*W, 7) target rows
     are ``model_rows`` when carried, else one gather of the arena at
-    ``model_img``. The association gate defaults to ``dist_th**2`` (squared
-    distances): a projection onto an unrelated surface would otherwise give
-    a confidently wrong correspondence."""
+    ``model_img`` (with a ``shard``, an owner-placed one). The association
+    gate defaults to ``dist_th**2`` (squared distances): a projection onto
+    an unrelated surface would otherwise give a confidently wrong
+    correspondence."""
     B, H, W, _ = rgb.shape
-    CAP = map_state.capacity
+    if shard is None:
+        shard = MapShard.whole(map_state.capacity)
+    CAP = shard.capacity
     _, _, gv, _, valid = _frame_maps(rgb, depth, intrinsics, prev_pose, local_maps)
     if model_rows is not None:
         tgt_img = model_rows
     else:
-        rows = _take_rows(map_state.data, torch.clamp(model_img, max=CAP - 1))
+        rows = shard.gather_rows(map_state.data[..., 0:6], torch.clamp(model_img, max=CAP - 1))
         tvalid = (model_img < CAP).to(rows.dtype)
         tgt_img = torch.cat([rows[..., 0:6], tvalid[..., None]], dim=-1)
     dist_thresh = opts.dist_thresh if opts.dist_thresh is not None else opts.dist_th**2
@@ -281,15 +289,14 @@ def _map_update(map_state, pose, rgb, depth, intrinsics, opts: SLAMOptions,
     semantic ``labels``, into the arena.
 
     With ``return_active`` the fusion path also returns
-    ``(slots, valid, model_img, model_rows or None)``. A ``shard`` builds no
-    model rows: only the projective odometry reads them, and it does not
-    run on a sharded arena.
+    ``(slots, valid, model_img, model_rows or None)``. With a ``shard``
+    ``model_rows='auto'`` resolves on the global capacity, as on one device.
     """
     vm, nm, gv, gn, valid = _frame_maps(rgb, depth, intrinsics, pose, local_maps)
     if opts.fusion:
         H, W = rgb.shape[1:3]
-        dense = (return_active and shard is None
-                 and _resolve_model_rows(opts.model_rows, H, W, map_state.capacity))
+        CAP = map_state.capacity if shard is None else shard.capacity  # the global arena's
+        dense = return_active and _resolve_model_rows(opts.model_rows, H, W, CAP)
         ret = fusion_update_compact(
             map_state, gv, gn, vm, rgb, valid, pose, intrinsics,
             opts.dist_th, opts.dot_th, opts.sigma,
@@ -309,7 +316,7 @@ def _map_update(map_state, pose, rgb, depth, intrinsics, opts: SLAMOptions,
             return ret
         out, active = ret
         return out, ((*active, None) if len(active) == 3 else active)
-    out = aggregate_map_dense(map_state, gv, gn, vm, rgb, valid, opts.sigma, frame_labels=labels)
+    out = aggregate_map_dense(map_state, gv, gn, vm, rgb, valid, opts.sigma, frame_labels=labels, shard=shard)
     return (out, None) if return_active else out
 
 
@@ -368,10 +375,6 @@ def slam_init_state(rgb, depth, intrinsics, opts: SLAMOptions, capacity: int, po
     ``capacity / n`` rows of it."""
     B, H, W, _ = rgb.shape
     dev, dtype = rgb.device, rgb.dtype
-    if shard is not None:
-        from .mapshard import check_sharded_options
-
-        check_sharded_options(opts, shard)
     map_state = init_map(B, capacity if shard is None else shard.rows, dtype, device=dev)
     if pose0 is None:
         pose0 = torch.eye(4, dtype=dtype, device=dev).expand(B, 4, 4)
@@ -412,7 +415,7 @@ def slam_step_state(state: SLAMState, rgb, depth, intrinsics, opts: SLAMOptions,
             )
         pose = _localize_projective(
             state.map_state, state.pose, state.model_img, rgb, depth, intrinsics, opts,
-            local_maps=local_maps, model_rows=state.model_rows,
+            local_maps=local_maps, model_rows=state.model_rows, shard=shard,
         )
     else:
         cand = None
@@ -451,8 +454,7 @@ def slam_sequence(rgb_seq, depth_seq, intrinsics, poses_seq, opts: SLAMOptions, 
             arena's channels 10-11 (``MapState.labels``, ``label_conf``).
         shard: optional :class:`~gradslam_tpu_torch.slam.mapshard.MapShard`:
             every rank of its group calls with the same frames and keeps its
-            ``capacity / n`` rows of the arena (the exact full-arena fusion
-            path only).
+            ``capacity / n`` rows of the arena, on every mapping path.
 
     Returns:
         (map_state, poses (B, L, 4, 4)); with a ``shard``, the map state is

@@ -10,17 +10,22 @@ Every cross-rank step is an ``all_reduce``:
   - an owner-placed SUM assembles rows or slots that one rank holds: each
     rank writes what it owns at its global position and zeros elsewhere.
     Floats are summed as their integer bits, so the owner's bits arrive
-    exactly (a float sum would turn the owner's -0.0 into +0.0);
+    exactly (a float sum would turn the owner's -0.0 into +0.0). Its
+    gradient is the SUM of the ranks' cotangents (:class:`_OwnerSum`);
   - a MIN picks the fusion winner of each pixel across the group, one key
-    word at a time (:meth:`MapShard.winner`).
+    word at a time (:meth:`MapShard.winner`);
+  - a SUM of counts places each rank's part of a compacted list
+    (:meth:`MapShard.compact`).
 
-With ``n == 1`` every collective is skipped and the shard is the arena.
+Every rank takes every collective in the same order: no branch on local
+data skips one. With ``n == 1`` (:meth:`MapShard.whole`) every collective is
+skipped and the shard is the arena: one process runs the same code.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Optional
 
 import torch
 import torch.distributed as dist
@@ -29,45 +34,44 @@ from ..ops.masking import compact_masked
 from ..ops.winner import _BITS
 from ..structures.maparena import MapState, scatter_rows
 
-__all__ = ["MapShard", "check_sharded_options", "owner_sum"]
+__all__ = ["MapShard", "owner_sum"]
 
 INT32_MIN = -(2**31)
 INT32_MAX = 2**31 - 1
 
 
+class _OwnerSum(torch.autograd.Function):
+    """The owner-placed sum with a gradient.
+
+    Forward: the integer-bit sum, so every rank gets the owners' bits.
+    Backward: the SUM of the ranks' cotangents (as
+    ``torch.distributed.nn.functional.all_reduce``), which routes the
+    gradient of every rank's copy to the owner. Each rank then holds the
+    gradient of the sum of the ranks' losses with respect to its own
+    inputs: a replicated loss is counted once per rank, which the caller
+    divides out (:func:`~gradslam_tpu_torch.parallel.sharded.sharded_train_step`).
+    """
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.clone()
+        dist.all_reduce(out.view(_BITS[x.dtype]) if x.is_floating_point() else out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
 def owner_sum(x: torch.Tensor, group=None) -> torch.Tensor:
-    """The owner-placed sum over ``group``, in place: ``x`` holds this
-    rank's values at their global positions and zeros elsewhere, each
-    position has one owner, and every rank gets the owners' bits (floats are
-    summed as their integer bits)."""
-    bits = x.view(_BITS[x.dtype]) if x.is_floating_point() else x
-    dist.all_reduce(bits, group=group)
-    return bits.view(x.dtype)
-
-
-def check_sharded_options(opts, shard: "MapShard") -> None:
-    """Raises ``ValueError`` for the options that map sharding does not run
-    yet (ROADMAP item A14b): it runs the exact full-arena PointFusion path
-    (``PointFusion()``'s mapping: fusion, KNN association, no window, no
-    block gating, the fusion step's candidates reused by the odometry)."""
-    from .fusionutils import _resolve_assoc_window
-
-    bad = []
-    if not opts.fusion:
-        bad.append("aggregate mapping (fusion=False)")
-    if opts.assoc != "knn":
-        bad.append(f"assoc={opts.assoc!r}")
-    if _resolve_assoc_window(opts.assoc_window, shard.capacity) is not None:
-        bad.append(f"assoc_window={opts.assoc_window}")
-    if opts.block_size is not None:
-        bad.append(f"block_size={opts.block_size}")
-    if opts.odom != "gt" and not opts.reuse_actives:
-        bad.append("reuse_actives=False")
-    if bad:
-        raise ValueError(
-            f"the map-sharded arena (map > 1) runs the exact full-arena fusion path only; "
-            f"{', '.join(bad)} under map sharding is ROADMAP item A14b"
-        )
+    """The owner-placed sum over ``group``: ``x`` holds this rank's values at
+    their global positions and zeros elsewhere, each position has one owner,
+    and every rank gets the owners' bits (floats are summed as their integer
+    bits); differentiable (:class:`_OwnerSum`)."""
+    return _OwnerSum.apply(x, group)
 
 
 @dataclass(frozen=True)
@@ -91,6 +95,11 @@ class MapShard:
         if self.capacity % self.n:
             raise ValueError(f"arena capacity {self.capacity} is not a multiple of the map axis {self.n}")
 
+    @classmethod
+    def whole(cls, capacity: int) -> "MapShard":
+        """The whole arena on one process: a group of one, no collective."""
+        return cls(None, 0, 1, capacity)
+
     @property
     def rows(self) -> int:
         """Rows of the local arena: ``capacity / n``."""
@@ -109,10 +118,34 @@ class MapShard:
         """Global slots as local rows, clamped into the local arena."""
         return torch.clamp(slots - self.offset, 0, self.rows - 1)
 
+    def slots(self, n: int, device) -> torch.Tensor:
+        """(n,) int32 global slots of the local rows ``[0, n)``."""
+        return self.offset + torch.arange(n, dtype=torch.int32, device=device)
+
     def live(self, state: MapState) -> torch.Tensor:
         """(B, rows) mask of the live local rows."""
-        idx = self.offset + torch.arange(self.rows, dtype=torch.int32, device=state.data.device)
-        return idx[None, :] < state.num_points[:, None]
+        return self.window(state)[1]
+
+    def window(self, state: MapState, win: Optional[int] = None):
+        """This rank's rows of the global prefix ``[0, win)`` (None: the
+        whole shard) and their live mask: (B, n, C) and (B, n) bool. ``n`` is
+        at least 1: a rank that holds none of the prefix keeps one masked
+        row, so it still runs every step and every collective."""
+        n = self.rows if win is None else max(1, min(self.rows, win - self.offset))
+        slots = self.slots(n, state.data.device)[None, :]
+        live = slots < state.num_points[:, None]
+        return state.data[:, :n], live if win is None else live & (slots < win)
+
+    def assemble_prefix(self, x: torch.Tensor, total: int) -> torch.Tensor:
+        """The global (B, total, ...) prefix from every rank's local rows:
+        ``x`` (B, n, ...) holds this rank's rows ``[0, n)``, of which those
+        below global slot ``total`` are placed; one owner-placed sum."""
+        if x.dtype == torch.bool:
+            return self.assemble_prefix(x.to(torch.int32), total).bool()
+        out = x.new_zeros((x.shape[0], total) + x.shape[2:])
+        m = max(0, min(x.shape[1], total - self.offset))
+        out[:, self.offset : self.offset + m] = x[:, :m]
+        return self.assemble(out)
 
     def all_reduce(self, x: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
         """In-place ``all_reduce`` over the group (nothing when n == 1)."""
@@ -120,11 +153,13 @@ class MapShard:
             dist.all_reduce(x, op=op, group=self.group)
         return x
 
-    def assemble(self, x: torch.Tensor, owned: torch.Tensor) -> torch.Tensor:
+    def assemble(self, x: torch.Tensor, owned: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The owner's value of ``x`` on every rank: ``x`` where ``owned``
-        (broadcast against it), zero elsewhere, summed over the group as
-        integer bits. Each position must have exactly one owner."""
-        x = torch.where(owned, x, torch.zeros_like(x))
+        (broadcast against it; None: ``x`` is zero where this rank does not
+        own it), zero elsewhere, summed over the group as integer bits. Each
+        position must have exactly one owner."""
+        if owned is not None:
+            x = torch.where(owned, x, torch.zeros_like(x))
         return owner_sum(x, self.group) if self.n > 1 else x
 
     def gather_rows(self, data: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
@@ -133,23 +168,31 @@ class MapShard:
         idx = self.local(slots).long()[..., None].expand(-1, -1, data.shape[-1])
         return self.assemble(torch.gather(data, 1, idx), self.owns(slots)[..., None])
 
-    def compact(self, mask: torch.Tensor, out_size: int):
+    def compact(self, mask: torch.Tensor, out_size: int, slots: Optional[torch.Tensor] = None):
         """:func:`~gradslam_tpu_torch.ops.masking.compact_masked` of the global
-        arena's (B, CAP) mask, from this rank's (B, rows) part of it.
+        arena's (B, CAP) mask, from this rank's (B, n) part of it: the mask of
+        its rows at the global ``slots`` (B, n) int32, ascending (None: the
+        local rows ``[0, n)``), and False on every other slot the rank holds.
 
         The global list is the ranks' lists joined in rank order (their slots
         ascend with the rank), cut at ``out_size``.
 
         Returns:
             (idx, keep, slots, valid): this rank's part of the list, ``idx``
-            (B, K) local rows with ``keep`` (B, K) marking those inside the
-            cut (a prefix), and the whole list on every rank, ``slots``
-            (B, out_size) int32 global slots (0 where invalid) and ``valid``
-            (B, out_size), as ``compact_masked`` returns them on one device.
+            (B, K) positions in ``mask`` with ``keep`` (B, K) marking those
+            inside the cut (a prefix), and the whole list on every rank,
+            ``slots`` (B, out_size) int32 global slots (0 where invalid) and
+            ``valid`` (B, out_size), as ``compact_masked`` returns them on
+            one device. ``K`` is ``min(out_size, n)``, and ``out_size`` in a
+            group of one, where this is one ``compact_masked``.
         """
+        if self.n == 1:
+            idx, valid = compact_masked(mask, out_size)
+            src = idx if slots is None else torch.where(valid, slots.gather(1, idx.long()), 0)
+            return idx, valid, src, valid
         B = mask.shape[0]
         dev = mask.device
-        K = min(out_size, self.rows)
+        K = min(out_size, mask.shape[1])
         idx, valid = compact_masked(mask, K)
         counts = torch.zeros((B, self.n), dtype=torch.int32, device=dev)
         counts[:, self.rank] = mask.sum(dim=1, dtype=torch.int32)
@@ -158,7 +201,8 @@ class MapShard:
         pos = before[:, None] + torch.arange(K, dtype=torch.int32, device=dev)[None, :]
         keep = valid & (pos < out_size)
         buf = torch.zeros((B, out_size + 1), dtype=torch.int32, device=dev)
-        buf = buf.scatter(1, torch.where(keep, pos, out_size).long(), idx + self.offset)[:, :out_size]
+        src = idx + self.offset if slots is None else slots.gather(1, idx.long())
+        buf = buf.scatter(1, torch.where(keep, pos, out_size).long(), src)[:, :out_size]
         self.all_reduce(buf)
         total = torch.clamp(counts.sum(dim=1), max=out_size)
         return idx, keep, buf, torch.arange(out_size, device=dev)[None, :] < total[:, None]
@@ -180,6 +224,7 @@ class MapShard:
         if self.n == 1:
             return wslots
         has = wslots < self.capacity
+        sorted_slots = sorted_slots.contiguous()
         pos = torch.clamp(torch.searchsorted(sorted_slots, wslots.contiguous()), max=sorted_slots.shape[1] - 1)
         # unsigned order as signed order: flip the sign bit
         hi = torch.where(has, k_hi.gather(1, pos) ^ INT32_MIN, INT32_MAX)

@@ -738,3 +738,20 @@ def test_refinement_on_the_card_matches_the_cpu(cuda_device):
         b = ba_refine(*args, num_iters=3, solver=solver)
         for x, y in zip(a, b):
             assert float((x.cpu() - y).abs().max()) < 1e-4, solver
+
+
+def test_map_sharded_flagship_on_the_card_matches_the_cpu(cuda_device, tmp_path):
+    """JAX's flagship configuration (projective association, a 2*H*W
+    window) over two gloo ranks on the card, ``make_mesh(data=1, map_=2)``,
+    against one process on the CPU: poses within 1e-4, ``num_points``
+    equal."""
+    from gradslam_tpu_torch.slam import SLAMOptions, slam_sequence
+    from tests.torch_dist_worker import FLAGSHIP, golden_clip, launch
+
+    ranks = launch("flagship_cuda2", 2, tmp_path, timeout=300.0, cuda=True)
+    rgb, dep, K, _ = (torch.from_numpy(np.ascontiguousarray(x)) for x in golden_clip(2))
+    B, L, H, W, _ = rgb.shape
+    m, p = slam_sequence(rgb, dep, K, None, SLAMOptions(**FLAGSHIP), L * H * W)
+    for got in ranks.wait():
+        np.testing.assert_array_equal(got["num_points"], m.num_points.numpy())
+        np.testing.assert_allclose(got["poses"], p.numpy(), atol=1e-4)

@@ -8,8 +8,12 @@ training step and the pipeline); the JAX side runs here on the virtual CPU
 devices that ``tests/conftest.py`` sets up. Inputs: the golden clip
 ``tests/data/msrd_b2s3`` strided 2x or 4x. Tolerances: ``sharded_slam``
 poses and arena within 1e-4 of JAX's with ``num_points`` equal, and
-bit-equal to the port's own single-process run; the training step's losses
-and parameters within 1e-4 relative of JAX's single-process step; the
+bit-equal to the port's own single-process run, for the full-arena options
+and for each mapping option of ``MAP_AXIS_OPTIONS`` under the map axis (held
+against JAX's single-process ``slam_sequence``); the training step's losses
+and parameters within 1e-4 relative of JAX's single-process step over 'data'
+and over (data, map), and under the map axis its move at a larger learning
+rate within 1e-4 relative of JAX's gradient times that rate; the
 pipeline's poses rtol 1e-5 atol 1e-6 and arena rtol 1e-5 atol 1e-4, the
 JAX test's, and bit-equal to the port's single-process run.
 """
@@ -26,7 +30,17 @@ from gradslam_tpu.parallel.pipeline import pipelined_slam_sequence as j_pipeline
 from gradslam_tpu.parallel.sharded import sharded_slam as j_sharded_slam
 from gradslam_tpu.parallel.sharded import slam_loss as j_slam_loss
 from gradslam_tpu.slam.icpslam import SLAMOptions as JOpts
-from tests.torch_dist_worker import MAP_AXIS_REFUSED, PIPE_OPTS, SHARDED_OPTS, TRAIN, golden_clip, launch
+from gradslam_tpu.slam.icpslam import slam_sequence as j_slam_sequence
+from tests.torch_dist_worker import (
+    MAP_AXIS_CAPACITY,
+    MAP_AXIS_OPTIONS,
+    PIPE_OPTS,
+    SHARDED_OPTS,
+    TRAIN,
+    TRAIN_MOVE_LR,
+    golden_clip,
+    launch,
+)
 
 
 @pytest.fixture(scope="module")
@@ -37,6 +51,27 @@ def sharded4(tmp_path_factory):
 @pytest.fixture(scope="module")
 def pair2(tmp_path_factory):
     return launch("pair2", 2, tmp_path_factory.mktemp("pair2"))
+
+
+@pytest.fixture(scope="module")
+def jax_train():
+    """JAX's single-process SGD steps (TRAIN) on the 4x-strided clip: the
+    losses, parameters after each step and the first step's gradient."""
+    rgb, dep, K, gt = (jnp.asarray(x) for x in golden_clip(4))
+    B, L, H, W, _ = rgb.shape
+    opts = JOpts(**TRAIN["opts"])
+    grad_fn = jax.jit(jax.value_and_grad(j_slam_loss), static_argnames=("opts", "capacity"))
+    params = JParams(scale=jnp.asarray(TRAIN["scale"]), bias=jnp.asarray(TRAIN["bias"]))
+    out = {"loss": [], "scale": [], "bias": []}
+    for i in range(TRAIN["steps"]):
+        loss, g = grad_fn(params, rgb, dep, K, gt, opts=opts, capacity=L * H * W)
+        if i == 0:
+            out["grad"] = [float(g.scale), float(g.bias)]
+        params = jax.tree_util.tree_map(lambda p, gg: p - TRAIN["lr"] * gg, params, g)
+        out["loss"].append(float(loss))
+        out["scale"].append(float(params.scale))
+        out["bias"].append(float(params.bias))
+    return out
 
 
 def test_sharded_slam_matches_jax(sharded4):
@@ -74,33 +109,45 @@ def test_map_shards_are_partitioned_and_bit_equal(sharded4):
     assert (r0["map4_num_points"] > H * W).all()
 
 
-@pytest.mark.parametrize("name", [*MAP_AXIS_REFUSED, "train"])
-def test_map_axis_refusals_name_their_roadmap_item(sharded4, name):
-    msg = str(sharded4.wait()[0][f"refused_{name}"])
-    assert msg, f"{name} ran under map sharding"
-    assert ("ROADMAP item A14c" if name == "train" else "ROADMAP item A14b") in msg
+@pytest.mark.parametrize("name", [*MAP_AXIS_OPTIONS, "train"])
+def test_map_axis_option_matches_jax(sharded4, jax_train, name):
+    """Each mapping option under make_mesh(data=2, map_=2), and the training
+    step over it, against JAX's single-process run."""
+    res = sharded4.wait()
+    if name == "train":
+        for got in res:
+            np.testing.assert_allclose(got["train_map_loss"], jax_train["loss"], rtol=1e-4, atol=1e-9)
+            np.testing.assert_allclose(got["train_map_scale"], jax_train["scale"], rtol=1e-4)
+            np.testing.assert_allclose(got["train_map_bias"], jax_train["bias"], rtol=1e-4, atol=1e-7)
+            np.testing.assert_array_equal(got["train_map_move"], res[0]["train_map_move"])
+        # the move at a larger rate: a gradient counted once, not once per map rank
+        move = np.array([TRAIN["scale"], TRAIN["bias"]], np.float32) - res[0]["train_map_move"]
+        np.testing.assert_allclose(move, TRAIN_MOVE_LR * np.array(jax_train["grad"]), rtol=1e-4)
+        assert (move != 0).all(), "zero gradient"
+        return
+    colors, depths, K, _ = golden_clip(2)
+    opts = JOpts(**dict(SHARDED_OPTS, **MAP_AXIS_OPTIONS[name]))
+    m, p = j_slam_sequence(jnp.asarray(colors), jnp.asarray(depths), jnp.asarray(K), None, opts, MAP_AXIS_CAPACITY)
+    B = colors.shape[0]
+    for got in res:
+        assert tuple(got[f"{name}_shard_shape"]) == (B // 2, MAP_AXIS_CAPACITY // 2, 12)
+    r0 = res[0]
+    assert bool(r0[f"{name}_bitequal"]), f"{name}: not bit-equal to the port's single-process run"
+    np.testing.assert_array_equal(r0[f"{name}_num_points"], np.asarray(m.num_points))
+    np.testing.assert_allclose(r0[f"{name}_poses"], np.asarray(p), atol=1e-4)
+    np.testing.assert_allclose(r0[f"{name}_data"], np.asarray(m.data), atol=1e-4)
+    # live rows on both map ranks
+    assert (r0[f"{name}_num_points"] > MAP_AXIS_CAPACITY // 2).any()
 
 
-def test_sharded_train_step_matches_jax(pair2):
-    rgb, dep, K, gt = (jnp.asarray(x) for x in golden_clip(4))
-    B, L, H, W, _ = rgb.shape
-    opts = JOpts(**TRAIN["opts"])
-    grad_fn = jax.jit(jax.value_and_grad(j_slam_loss), static_argnames=("opts", "capacity"))
-    params = JParams(scale=jnp.asarray(TRAIN["scale"]), bias=jnp.asarray(TRAIN["bias"]))
-    losses, scales, biases = [], [], []
-    for _ in range(TRAIN["steps"]):
-        loss, g = grad_fn(params, rgb, dep, K, gt, opts=opts, capacity=L * H * W)
-        params = jax.tree_util.tree_map(lambda p, gg: p - TRAIN["lr"] * gg, params, g)
-        losses.append(float(loss))
-        scales.append(float(params.scale))
-        biases.append(float(params.bias))
+def test_sharded_train_step_matches_jax(pair2, jax_train):
     res = pair2.wait()
     for got in res:
-        np.testing.assert_allclose(got["train_loss"], losses, rtol=1e-4, atol=1e-9)
-        np.testing.assert_allclose(got["train_scale"], scales, rtol=1e-4)
-        np.testing.assert_allclose(got["train_bias"], biases, rtol=1e-4, atol=1e-7)
+        np.testing.assert_allclose(got["train_loss"], jax_train["loss"], rtol=1e-4, atol=1e-9)
+        np.testing.assert_allclose(got["train_scale"], jax_train["scale"], rtol=1e-4)
+        np.testing.assert_allclose(got["train_bias"], jax_train["bias"], rtol=1e-4, atol=1e-7)
         np.testing.assert_array_equal(got["train_scale"], res[0]["train_scale"])
-    assert scales[-1] != TRAIN["scale"] and res[0]["train_scale"][-1] != TRAIN["scale"], "zero gradient"
+    assert jax_train["scale"][-1] != TRAIN["scale"] and res[0]["train_scale"][-1] != TRAIN["scale"], "zero gradient"
 
 
 @pytest.mark.parametrize("assoc", ["knn", "projective"])
