@@ -130,7 +130,22 @@ full-arena fusion) and ``PointFusion(assoc='projective', assoc_window=...)``
      process on the whole batch, every kernel call bit-equal to its plain
      version;
  29. ``sharded_train_step`` over ``make_mesh(data=1, map_=2)`` on the pair
-     of phase 27's ranks, at its inputs, against one process's steps.
+     of phase 27's ranks, at its inputs, against one process's steps;
+ 30. every example CLI and tutorial of ``examples_torch/`` as a process of
+     its own on the card (``--device cuda``), each output line checked:
+     pointfusion, icpslam and evaluate_ate on phase 15's 480x640 TUM tree
+     (L=16, B=2), e2e_pipeline on that tree, ATE below 5e-3 m; the ScanNet
+     CLIs on a 240x320 tree of 16 frames, labels fused into a PLY;
+     loop_closure, the tutorials and both training scripts at their
+     defaults; then pointfusion.py in this process with every KNN and
+     winner call (600 and 16) bit-equal to its plain version; each
+     process's wall seconds;
+ 31. the checkpoint across ranks: phase 23's (data=2, map=2) ranks save
+     their 614,400-row shards with ``save_slam_state(use_orbax=True,
+     mesh=...)``; this process loads the directory whole on the card, and
+     phase 28's (data=1, map=4) ranks each load their shard, each bit-equal
+     (one process's arena, ``shard_map_state`` of the whole); the bytes on
+     disk and the save and load seconds.
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after: the KNN kernel 40 times per frame step on the KNN path and
@@ -138,8 +153,9 @@ never on the projective one, 2 per ICP iteration and 1 more per detector
 set in a loop closure, the winner kernel once per fusion step on both, once
 per compaction and once per accepted closure of the managed run (the
 refresh's selection), neither in a backward; in phases 22-29 each
-rank counts its own launches. Any failed check raises. The line before the
-last is a JSON object with one entry per kernel; the last line is
+rank counts its own launches; phase 30 counts the in-process CLI run's.
+Any failed check raises. The line before the last is a JSON object with
+one entry per kernel; the last line is
 ``{"ok": true, "device": ...}``. Needs one card; exits non-zero without one.
 """
 
@@ -147,8 +163,10 @@ from __future__ import annotations
 
 import json
 import pathlib
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -1541,13 +1559,14 @@ def _check_voxel_cells(phase, m, sizes=VOXEL_CHECK_SIZES):
             f"{ {k: (v[2], v[0], v[1]) for k, v in moved.items()} })")
 
 
-def _ply_vertices(path) -> int:
+def _ply_vertices(path, vertex_bytes=27) -> int:
     """The vertex count in a binary PLY file's header, checked against the
-    file's size (27 bytes a vertex: position, normal, color)."""
+    file's size (27 bytes a vertex: position, normal, color; 15 without the
+    normal)."""
     blob = path.read_bytes()
     head = blob[: blob.index(b"end_header\n") + len(b"end_header\n")]
     n = int(next(l for l in head.decode().splitlines() if l.startswith("element vertex")).split()[-1])
-    _check(len(blob) - len(head) == 27 * n, f"ply: {len(blob) - len(head)} bytes for {n} vertices")
+    _check(len(blob) - len(head) == vertex_bytes * n, f"ply: {len(blob) - len(head)} bytes for {n} vertices")
     return n
 
 
@@ -1558,8 +1577,6 @@ def files_phase(dev, capacity_hw=E2E_CAPACITY_HW, voxel_size=E2E_VOXEL, segment_
     files' ground truth, the rows each compaction reclaims and the headroom; a checkpoint at a compacting boundary resumed from
     its file, bitwise equal to the uninterrupted run; the map as PLY.
     Returns (launches, {kernel: {case: timing}})."""
-    import tempfile
-
     from gradslam_tpu_torch import PointFusion
     from gradslam_tpu_torch.datasets import TUM, DataLoader
     from gradslam_tpu_torch.metrics import ate_rmse
@@ -2281,19 +2298,20 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _start_ranks(phase: str, world: int):
+def _start_ranks(phase: str, world: int, ckpt=None):
     """Starts ``world`` ranks of ``phase`` (``chip_smoke.py --rank``), each on
-    card 0, each writing its output to ``rank<r>.log`` in a new directory;
-    :func:`_wait_ranks` collects them, :func:`_stop_ranks` ends them."""
-    import tempfile
-
+    card 0, each writing its output to ``rank<r>.log`` in a new directory,
+    and reading and writing phase 31's checkpoint directory ``ckpt`` in
+    place; :func:`_wait_ranks` collects them, :func:`_stop_ranks` ends
+    them."""
     out = pathlib.Path(tempfile.mkdtemp(prefix=f"chip_smoke_{phase}_"))
     port = _free_port()
     procs = []
     for r in range(world):
         with open(out / f"rank{r}.log", "w") as log:
             procs.append(subprocess.Popen(
-                [sys.executable, str(ROOT / "chip_smoke.py"), "--rank", phase, str(r), str(world), str(port), str(out)],
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--rank", phase, str(r), str(world), str(port), str(out),
+                 str(ckpt or "")],
                 stdout=log, stderr=subprocess.STDOUT, cwd=ROOT,
             ))
     return phase, procs, out, time.monotonic() + RANK_TIMEOUT_S[phase], time.perf_counter()
@@ -2301,8 +2319,6 @@ def _start_ranks(phase: str, world: int):
 
 def _stop_ranks(started):
     """Kills the ranks still running and removes their directory."""
-    import shutil
-
     _, procs, out, _, _ = started
     for p in procs:
         if p.poll() is None:
@@ -2393,7 +2409,7 @@ def _on(dev, *arrays):
     return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in arrays)
 
 
-def _rank_nccl(dev, rank, res, out):
+def _rank_nccl(dev, rank, res, out, ckpt):
     """Phase 22 (one NCCL rank): ``sharded_slam`` on a 1x1 mesh, the
     assembly through NCCL, against ``slam_sequence`` bit for bit."""
     from gradslam_tpu_torch.parallel import make_mesh, sharded_slam, unshard_batch, unshard_map_state
@@ -2411,12 +2427,17 @@ def _rank_nccl(dev, rank, res, out):
     res["num_points"], res["ref_num_points"] = g.num_points.tolist(), m1.num_points.tolist()
 
 
-def _rank_map(dev, rank, res, out):
+def _rank_map(dev, rank, res, out, ckpt):
     """Phase 23 (four gloo ranks): ``sharded_slam`` at the ScanNet geometry
     over ``make_mesh(data=2, map_=2)``, and over a 4-shard map of a
     2*H*W-row arena on the first ``MAP4_FRAMES`` frames, whose live rows
-    span all four shards; rank 0 writes the assembled arenas and poses."""
+    span all four shards; rank 0 writes the assembled arenas and poses.
+    Phase 31: the (data=2, map=2) run's state saved with ``use_orbax=True``
+    into ``<ckpt>/ckpt`` and ``<ckpt>/ckpt_again``, each rank its own shard,
+    the import of ``torch.distributed.checkpoint`` and ``DTensor`` timed
+    apart from the saves."""
     from gradslam_tpu_torch.parallel import make_mesh, sharded_slam, unshard_batch, unshard_map_state
+    from gradslam_tpu_torch.utils import save_slam_state
 
     rgb, dep, K = _on(dev, *_scannet_clip(16))
     B, L, H, W = rgb.shape[:4]
@@ -2432,6 +2453,19 @@ def _rank_map(dev, rank, res, out):
         if rank == 0:
             for name, x in (("data", g.data), ("num_points", g.num_points), ("poses", pg)):
                 np.save(out / f"{key}_{name}.npy", x.cpu().numpy())
+        if key == "map2":  # phase 31: every rank writes its own shard, twice (the first save sets DCP up)
+            t0 = time.perf_counter()
+            import torch.distributed.checkpoint  # noqa: F401
+            import torch.distributed.tensor  # noqa: F401
+
+            res["dcp_import_seconds"] = time.perf_counter() - t0
+            res["ckpt_save_seconds"] = []
+            for name in ("ckpt", "ckpt_again"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                save_slam_state(str(ckpt / name), m, p, use_orbax=True, mesh=mesh)
+                torch.cuda.synchronize()
+                res["ckpt_save_seconds"].append(time.perf_counter() - t0)
 
 
 def _rank_pipeline(dev, rank, res):
@@ -2532,7 +2566,7 @@ def _rank_train(dev, rank, res):
         res[key] = dict(out, **ref_out, seconds=rec[0], launches=rec[1])
 
 
-def _rank_pair(dev, rank, res, out):
+def _rank_pair(dev, rank, res, out, ckpt):
     """Phases 24, 26, 27 and 29 on one pair of gloo ranks."""
     _rank_pipeline(dev, rank, res)
     _rank_refine(dev, rank, res)
@@ -2583,10 +2617,22 @@ def _option_launches(clip_L, kw):
             "winner": 0 if kw.get("fusion") is False else clip_L}
 
 
-def _rank_options(dev, rank, res, out):
+def _rank_options(dev, rank, res, out, ckpt):
     """Phase 28 (four gloo ranks): ``sharded_slam`` of each of
-    :func:`_option_runs`; rank 0 writes the assembled arenas and poses."""
-    from gradslam_tpu_torch.parallel import make_mesh, sharded_slam, unshard_batch, unshard_map_state
+    :func:`_option_runs`; rank 0 writes the assembled arenas and poses.
+    Phase 31: each rank loads its shard of ``<ckpt>/ckpt`` (twice, the
+    import timed apart) against ``shard_map_state`` of the one-process state
+    that phase 23 left beside it."""
+    from gradslam_tpu_torch.parallel import (
+        make_mesh,
+        shard_batch,
+        shard_map_state,
+        sharded_slam,
+        unshard_batch,
+        unshard_map_state,
+    )
+    from gradslam_tpu_torch.structures import MapState
+    from gradslam_tpu_torch.utils import load_slam_state
 
     clips, meshes = _option_clips(dev), {}
     for n, (key, clip, shape, cap, kw) in enumerate(_option_runs()):
@@ -2600,6 +2646,26 @@ def _rank_options(dev, rank, res, out):
         if rank == 0:
             for name, x in (("data", g.data), ("num_points", g.num_points), ("poses", pg)):
                 np.save(out / f"options{n}_{name}.npy", x.cpu().numpy())
+    # phase 31: phase 23's checkpoint, saved over (data=2, map=2), loaded
+    # over (data=1, map=4) against shard_map_state of the whole state
+    mesh, seconds = meshes[(1, 4)], []
+    data, npts, poses = _on(dev, *(np.load(ckpt / f"ref_{k}.npy") for k in ("data", "num_points", "poses")))
+    ref, ref_poses = shard_map_state(mesh, MapState(data, npts)), shard_batch(mesh, poses)
+    t0 = time.perf_counter()
+    import torch.distributed.checkpoint  # noqa: F401
+    import torch.distributed.tensor  # noqa: F401
+
+    import_s, loads = time.perf_counter() - t0, []
+    for _ in range(2):  # the first load sets DCP up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m, p = load_slam_state(str(ckpt / "ckpt"), use_orbax=True, mesh=mesh)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        loads.append((_diff(m.data, ref.data), m.num_points.tolist() == ref.num_points.tolist(), _diff(p, ref_poses)))
+    res["ckpt"] = {"dcp_import_seconds": import_s, "seconds": seconds, "shard_shape": list(m.data.shape),
+                   "data_diff": [l[0][0] for l in loads],
+                   "num_points_equal": [l[1] for l in loads], "poses_diff": [l[2][0] for l in loads]}
 
 
 RANK_PHASES = {"nccl": _rank_nccl, "map": _rank_map, "pair": _rank_pair, "options": _rank_options}
@@ -2607,9 +2673,10 @@ RANK_PHASES = {"nccl": _rank_nccl, "map": _rank_map, "pair": _rank_pair, "option
 
 def _rank_main(argv) -> int:
     """One rank of a phase: ``chip_smoke.py --rank <phase> <rank> <world>
-    <port> <dir>``, on card 0, NCCL for the 'nccl' phase and gloo for the
-    others; writes ``<dir>/rank<rank>.json``."""
+    <port> <dir> <checkpoint dir>``, on card 0, NCCL for the 'nccl' phase
+    and gloo for the others; writes ``<dir>/rank<rank>.json``."""
     phase, rank, world, port, out = argv[0], int(argv[1]), int(argv[2]), argv[3], pathlib.Path(argv[4])
+    ckpt = pathlib.Path(argv[5]) if argv[5] else None
     sys.path.insert(0, str(ROOT))
     torch.cuda.set_device(0)
     dev = torch.device("cuda", 0)
@@ -2620,7 +2687,7 @@ def _rank_main(argv) -> int:
     res = {"summary": host_summary()}
     _log(res["summary"])
     try:
-        RANK_PHASES[phase](dev, rank, res, out)
+        RANK_PHASES[phase](dev, rank, res, out, ckpt)
     finally:
         torch.distributed.destroy_process_group()
     (out / f"rank{rank}.json").write_text(json.dumps(res))
@@ -2667,7 +2734,7 @@ def _batch_invariance(dev, N=4800):
     }
 
 
-def map_phase(dev, smi):
+def map_phase(dev, smi, ckpt):
     """Phase 23: four gloo ranks on the card, ``sharded_slam`` at the
     ScanNet geometry over (data=2, map=2), CAP=L*H*W, and over a 4-shard
     map of 2*H*W rows (data=1) on the first ``MAP4_FRAMES`` frames, each
@@ -2676,13 +2743,13 @@ def map_phase(dev, smi):
     run also against one process's run of the whole batch at once:
     ``num_points`` equal, arena and poses within 1e-4 (ICP sums each batch
     element on its own, so the batch's split should not show: see
-    ``_batch_invariance``)."""
-    import shutil
-
+    ``_batch_invariance``). Phase 31, its save: the ranks write the
+    (data=2, map=2) state into ``ckpt``, and this process leaves its own
+    run's state there as ``ref_*.npy`` for the loads."""
     from gradslam_tpu_torch.slam import slam_sequence
 
     t0 = time.perf_counter()
-    started = _start_ranks("map", 4)
+    started = _start_ranks("map", 4, ckpt)
     try:  # the references run while the ranks start
         rgb, dep, K = _on(dev, *_scannet_clip(16))
         B, L, H, W = rgb.shape[:4]
@@ -2737,6 +2804,15 @@ def map_phase(dev, smi):
                        f"the port's ICP sums depend on the batch: {invariance}")
     finally:
         shutil.rmtree(out, ignore_errors=True)
+    for name, x in zip(("data", "num_points", "poses"), refs["map2"]):
+        np.save(ckpt / f"ref_{name}.npy", x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x, np.int32))
+    on_disk = sum(f.stat().st_size for f in (ckpt / "ckpt").rglob("*") if f.is_file())
+    _log(f"checkpoint (data=2, map=2) B={B} CAP={L * H * W}: saved by 4 ranks, each its own shard, in "
+         f"{[[round(t, 3) for t in r['ckpt_save_seconds']] for r in results]} s a rank (twice: the first save sets "
+         f"DCP up), after importing torch.distributed.checkpoint and DTensor in "
+         f"{[round(r['dcp_import_seconds'], 3) for r in results]} s a rank; {on_disk} bytes on disk in "
+         f"{sorted(f.name for f in (ckpt / 'ckpt').iterdir())} (the data tensor "
+         f"{refs['map2'][0].numel() * refs['map2'][0].element_size()} bytes) on {smi}")
     _log(f"sharded scannet: phase {secs:.1f} s (the ranks' start included) on {smi}")
     return launches
 
@@ -2813,24 +2889,47 @@ def train_map_phase(r0, r1):
     return t["launches"]
 
 
-def options_phase(dev, smi):
+def _whole_checkpoint_load(dev, smi, ckpt):
+    """Phase 31: each save of phase 23's ranks loaded whole on the card
+    (``mesh=None``), bit-equal to one process's run (arena, ``num_points``,
+    poses)."""
+    from gradslam_tpu_torch.utils import load_slam_state
+
+    ref_data, ref_npts, ref_poses = (np.load(ckpt / f"ref_{k}.npy") for k in ("data", "num_points", "poses"))
+    load_s = []
+    for name in ("ckpt", "ckpt_again"):  # the first load sets DCP up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m, p = load_slam_state(str(ckpt / name), use_orbax=True, device=dev)
+        torch.cuda.synchronize()
+        load_s.append(round(time.perf_counter() - t0, 3))
+        dd, pd = _diff(m.data, ref_data), _diff(p, ref_poses)
+        _log(f"checkpoint {name} loaded whole on the card in {load_s[-1]} s: differing elements arena {dd[0]} of "
+             f"{m.data.numel()}, poses {pd[0]}, num_points {m.num_points.tolist()} vs {ref_npts.tolist()} on {smi}")
+        _check(m.data.device == dev and dd[0] == 0 and pd[0] == 0 and m.num_points.tolist() == ref_npts.tolist(),
+               f"checkpoint: the whole load of {name} differs from one process: arena {dd}, poses {pd}")
+
+
+def options_phase(dev, smi, ckpt):
     """Phase 28: four gloo ranks on the card, ``sharded_slam`` on each of
     :func:`_option_runs`, bit for bit against one process's
     ``slam_sequence`` of the whole batch (0 arena elements and 0 poses
     differ, ``num_points`` equal), each rank's shard (B/data, CAP/map, 12),
     its launches one process's, every kernel call of every rank bit-equal
-    to its plain version."""
-    import shutil
-
+    to its plain version. Phase 31, its loads: phase 23's checkpoint in
+    ``ckpt`` loaded whole in this process (``mesh=None``) on the card,
+    bit-equal to one process's run, and each rank's shard of it over
+    (data=1, map=4) bit-equal to ``shard_map_state`` of that run."""
     from gradslam_tpu_torch.slam import slam_sequence
 
     t0 = time.perf_counter()
-    started = _start_ranks("options", 4)
-    try:  # the references run while the ranks start
+    started = _start_ranks("options", 4, ckpt)
+    try:  # the references and the whole load run while the ranks start
         clips, refs = _option_clips(dev), []
         for key, clip, shape, cap, kw in _option_runs():
             m, p = slam_sequence(*clips[clip], None, _slam_opts(dev, kw), cap)
             refs.append((m.data.cpu(), m.num_points.tolist(), p.cpu()))
+        _whole_checkpoint_load(dev, smi, ckpt)
     except BaseException:
         _stop_ranks(started)
         raise
@@ -2859,6 +2958,16 @@ def options_phase(dev, smi):
             for p in per:
                 _check_launches(f"map axis {key}", p, _option_launches(L, kw))
             launches[f"map axis {key} per rank"] = per[0]
+        ck = [r["ckpt"] for r in results]
+        _log(f"checkpoint loaded over (data=1, map=4): shards {[c['shard_shape'] for c in ck]} in "
+             f"{[[round(t, 3) for t in c['seconds']] for c in ck]} s a rank (twice; the import of DCP and DTensor "
+             f"before them {[round(c['dcp_import_seconds'], 3) for c in ck]} s); against shard_map_state of the "
+             f"whole: differing elements arena {[c['data_diff'] for c in ck]}, poses {[c['poses_diff'] for c in ck]}, "
+             f"num_points equal {[c['num_points_equal'] for c in ck]}")
+        for c in ck:
+            _check(c["data_diff"] == [0, 0] and c["poses_diff"] == [0, 0] and all(c["num_points_equal"])
+                   and c["shard_shape"] == [2, 16 * 240 * 320 // 4, 12],
+                   f"checkpoint over (data=1, map=4): a shard differs from shard_map_state {c}")
     finally:
         shutil.rmtree(out, ignore_errors=True)
     _log(f"map axis options: phase {secs:.1f} s (the ranks' start included; gloo on one shared card: "
@@ -2899,6 +3008,199 @@ def seqpar_phase(dev, smi):
     # the chunks fold into the batch: one run of chunk_len frames
     _check_launches("seqpar", launches, {"knn": (card.chunk_len - 1) * 40, "winner": card.chunk_len})
     return {"seqpar golden 4 chunks": launches}
+
+
+# ---------------------------------------------------------------------------
+# 30. the example CLIs on the card
+# ---------------------------------------------------------------------------
+
+CLI_ATE_M = 5e-3  # phase 15's gate: the rendered scene's files to ATE
+SCANNET_CLI_HW = (240, 320)
+SCANNET_CLI_FRAMES = 16
+CLI_TIMEOUT_S = 300
+
+
+def _write_scannet_tree(root, dev, n, H, W):
+    """Writes the rendered scene as ScanNet's ``scans/scene0000_00``
+    (8-bit color, 16-bit depth in mm, 16-bit nyu40 labels in 5 cm depth
+    bands, camera-to-world poses, the 480x640 depth intrinsics that the
+    loader scales to H x W) and its sequence file ``meta/``, with the
+    stdlib PNG writer."""
+    colors, depths, poses = _render_e2e(dev, n, H, W)
+    scene = root / "scans" / "scene0000_00"
+    for sub in ("color", "depth", "label-filt", "pose", "intrinsic"):
+        (scene / sub).mkdir(parents=True)
+    np.savetxt(scene / "intrinsic" / "intrinsic_depth.txt",
+               np.array([[525.0, 0, 319.5, 0], [0, 525.0, 239.5, 0], [0, 0, 1, 0], [0, 0, 0, 1]]))
+    jobs, lines = [], []
+    for i in range(n):
+        jobs += [(scene / "color" / f"{i}.png", colors[i]),
+                 (scene / "depth" / f"{i}.png", np.round(depths[i] * 1000.0).astype(np.uint16)),
+                 (scene / "label-filt" / f"{i}.png", (np.floor(depths[i] * 20.0) % 40 + 1).astype(np.uint16))]
+        np.savetxt(scene / "pose" / f"{i}.txt", poses[i])
+        lines.append(f"color scene0000_00/color/{i}.png depth scene0000_00/depth/{i}.png pose "
+                     f"scene0000_00/pose/{i}.txt label-filt scene0000_00/label-filt/{i}.png intrinsic_depth "
+                     "scene0000_00/intrinsic/intrinsic_depth.txt")
+    with ThreadPoolExecutor(8) as ex:
+        list(ex.map(lambda job: _write_png(*job), jobs))
+    (root / "meta").mkdir()
+    (root / "meta" / "scene0000_00-seq_0.txt").write_text("\n".join(lines))
+
+
+def _cli(script, argv, dev):
+    """``examples_torch/<script> <argv> --device <dev type>`` as a process of
+    its own, its output printed; returns (its output lines, wall seconds).
+    A nonzero exit fails the phase."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, str(ROOT / "examples_torch" / script), *argv, "--device", dev.type],
+                         capture_output=True, text=True, cwd=ROOT, timeout=CLI_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    for l in out.stdout.strip().splitlines():
+        _log(f"  [{script}] {l}")
+    _check(out.returncode == 0, f"{script} exited with {out.returncode}: {out.stderr[-3000:]}")
+    return out.stdout.splitlines(), seconds
+
+
+def _numbers(text):
+    """The numbers in ``text``."""
+    import re
+
+    return [float(x) for x in re.findall(r"[-+]?\d*\.?\d+(?:e[-+]?\d+)?", text)]
+
+
+def _after(lines, prefix):
+    """The numbers after ``prefix`` on the one line that starts with it."""
+    found = [l for l in lines if l.startswith(prefix)]
+    _check(len(found) == 1, f"{len(found)} lines start with {prefix!r}")
+    return _numbers(found[0][len(prefix):])
+
+
+def _check_ate(script, ates, gate=CLI_ATE_M):
+    _check(len(ates) > 0 and all(np.isfinite(a) and 0 <= a < gate for a in ates), f"{script}: ATE {ates} m")
+
+
+def _check_tum_cli(script, lines):
+    """pointfusion.py and icpslam.py: two map sizes and two ATEs."""
+    points = _after(lines, "map points per batch:")
+    _check(len(points) == 2 and min(points) > 0, f"{script}: map points {points}")
+    _check_ate(script, _after(lines, "ATE-RMSE vs dataset poses:"))
+
+
+def cli_phase(dev, smi):
+    """Phase 30: every CLI and tutorial of ``examples_torch/`` as a process of
+    its own on the card (``--device cuda``), each output line parsed and
+    checked: CLIs 1-3 on phase 15's 480x640 TUM tree (32 frames, L=16, B=2
+    where the CLI batches), ATE below 5e-3 m; e2e_pipeline on that tree at
+    its defaults (windows of 6, 12 iterations, closure), the same gate; the
+    ScanNet CLIs on a 240x320 tree of 16 frames (the labels fused into a
+    PLY); loop_closure, both tutorials and both training scripts at their
+    defaults (the calibration under tests/test_torch_calib.py's gate). Then
+    pointfusion.py once more in this process (``runpy``, the same argv),
+    every KNN and winner call recorded with its output: 600 and 16 launches,
+    each call bit-equal to its plain version. Returns that run's launches."""
+    import contextlib
+    import io
+    import runpy
+    from gradslam_tpu_torch.odometry import icputils
+    from gradslam_tpu_torch.ops import knn_reference, pixel_winner_reference
+    from gradslam_tpu_torch.slam import fusionutils
+
+    H, W = E2E_HW
+    t_phase = time.perf_counter()
+    secs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tum, scannet = pathlib.Path(tmp) / "tum", pathlib.Path(tmp) / "scannet"
+        _write_tum_tree(tum / "rgbd_dataset_render", dev, E2E_FRAMES, H, W)
+        _write_scannet_tree(scannet, dev, SCANNET_CLI_FRAMES, *SCANNET_CLI_HW)
+        frames = ["--height", str(H), "--width", str(W)]
+        tum_cli = ["--dataset_path", str(tum), *frames, "--seqlen", str(E2E_SEQLEN)]
+        for script in ("pointfusion.py", "icpslam.py"):
+            lines, secs[script] = _cli(script, [*tum_cli, "--batch_size", "2"], dev)
+            _check_tum_cli(script, lines)
+        lines, secs["evaluate_ate.py"] = _cli("evaluate_ate.py", tum_cli, dev)
+        seqs = [l for l in lines if l.startswith("seq ")]
+        _check(len(seqs) == E2E_FRAMES // E2E_SEQLEN, f"evaluate_ate.py: {len(seqs)} windows")
+        _check_ate("evaluate_ate.py", [_numbers(l.split("ATE-RMSE")[1])[0] for l in seqs])
+        lines, secs["e2e_pipeline.py"] = _cli("e2e_pipeline.py", ["--basedir", str(tum), *frames], dev)
+        windows = [l for l in lines if l.startswith("window: ATE-RMSE")]
+        _check(len(windows) == E2E_FRAMES // 6, f"e2e_pipeline.py: {len(windows)} windows")
+        _check_ate("e2e_pipeline.py", [_numbers(l.split("m (")[0])[0] for l in windows])
+
+        scan = ["--scannet_path", str(scannet / "scans"), "--scannet_meta_path", str(scannet / "meta"),
+                "--height", str(SCANNET_CLI_HW[0]), "--width", str(SCANNET_CLI_HW[1])]  # the files' own: no resize
+        ply = pathlib.Path(tmp) / "labels.ply"
+        lines, secs["pointfusion_scannet.py"] = _cli("pointfusion_scannet.py", [*scan, "--semantic_ply", str(ply)], dev)
+        points = _after(lines, "map points:")
+        written = _after(lines, "semantic PLY written to " + str(ply))
+        _check(len(points) == 1 and points[0] > 0 and written == points and _ply_vertices(ply, 15) == points[0],
+               f"pointfusion_scannet.py: map points {points}, PLY {written}")
+        _check_ate("pointfusion_scannet.py", _after(lines, "ATE-RMSE vs dataset poses:"))
+        lines, secs["icpslam_scannet.py"] = _cli("icpslam_scannet.py", scan, dev)
+        _check(_after(lines, "map points:")[0] > 0, "icpslam_scannet.py: no map points")
+        _check_ate("icpslam_scannet.py", _after(lines, "ATE-RMSE vs dataset poses:"))
+
+        lines, secs["loop_closure.py"] = _cli("loop_closure.py", [], dev)
+        before, after = _after(lines, "final-frame error:")
+        _check(_after(lines, "loop edges accepted:") and after < 0.5 * before,
+               f"loop_closure.py: final-frame error {before} -> {after} m")
+        lines, secs["train_depth_calib.py"] = _cli("train_depth_calib.py", [], dev)
+        steps = [l for l in lines if l.startswith("step ")]
+        losses = [_numbers(l.split("loss")[1])[0] for l in steps]
+        scale = _numbers(next(l for l in lines if l.startswith("recovered scale")))[0]
+        _check(abs(scale - TRUE_SCALE) <= 0.01 and all("bias +0.00000" in l for l in steps)
+               and losses[-1] < 0.01 * losses[0], f"train_depth_calib.py: scale {scale}, losses {losses}")
+        lines, secs["train_loopclosure_ate.py"] = _cli("train_loopclosure_ate.py", [], dev)
+        ates = [_numbers(l.split("ATE")[1])[0] for l in lines if l.startswith("step ")]
+        final, true = _after(lines, "recovered range scale")[:2]
+        _check(ates[-1] < ates[0] and abs(final - true) <= 0.01 * true,
+               f"train_loopclosure_ate.py: ATE {ates}, scale {final} (true {true})")
+        lines, secs["pointfusion_tutorial.py"] = _cli("tutorials/pointfusion_tutorial.py", [], dev)
+        _check_ate("pointfusion_tutorial.py", _after(lines, "ATE-RMSE:"), 2e-3)
+        lines, secs["structures_tutorial.py"] = _cli("tutorials/structures_tutorial.py", [], dev)
+        _check(min(_after(lines, "frame cloud sizes:")) > 0, "structures_tutorial.py: an empty frame cloud")
+
+        # pointfusion.py again in this process, every kernel call recorded
+        argv = [str(ROOT / "examples_torch" / "pointfusion.py"), *tum_cli, "--batch_size", "2", "--device", dev.type]
+        knn_calls, winner_calls, printed = [], [], io.StringIO()
+        restore = [_recording(icputils, "knn", knn_calls, True),
+                   _recording(fusionutils, "pixel_winner", winner_calls, True)]
+        real_argv, sys.argv = sys.argv, argv
+        try:
+            torch.cuda.synchronize()
+            _reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                runpy.run_path(argv[0], run_name="__main__")
+            torch.cuda.synchronize()
+            in_process = time.perf_counter() - t0
+            launches = _launches()
+        finally:
+            sys.argv = real_argv
+            for r in restore:
+                r()
+    lines = printed.getvalue().splitlines()
+    _check_tum_cli("pointfusion.py in process", lines)
+    L = E2E_SEQLEN
+    _check_launches("cli pointfusion in process", launches, {"knn": (L - 1) * 40, "winner": L})
+    _check(launches == {"knn": len(knn_calls), "winner": len(winner_calls)},
+           f"cli: launches {launches} for {len(knn_calls)} KNN and {len(winner_calls)} winner calls")
+    t0 = time.perf_counter()
+    for n, ((src, tgt, *_), (d, i)) in enumerate(knn_calls):
+        # no target past the last valid one can win, so the plain version
+        # skips them; that they are all invalid is checked on the whole buffer
+        T = int(tgt.limit.max())
+        _check(not bool(tgt.valid[:, T:].any()), f"cli: KNN call {n} has a valid target past its limit {T}")
+        dp, ip = knn_reference(src, tgt.tgt[:, :T], tgt.valid[:, :T])
+        _check(torch.equal(i, ip) and torch.equal(d, dp), f"cli: KNN call {n} differs from the plain version")
+    for n, (args, out) in enumerate(winner_calls):
+        _check(torch.equal(out, pixel_winner_reference(*args)), f"cli: winner call {n} differs from the plain version")
+    check_s = time.perf_counter() - t0
+    _log(f"cli pointfusion.py in process B=2 L={L} {H}x{W}: {in_process:.3f} s, ATE "
+         f"{_after(lines, 'ATE-RMSE vs dataset poses:')} m, launches {launches}; {len(knn_calls)} KNN and "
+         f"{len(winner_calls)} winner calls bit-equal to the plain versions (checked in {check_s:.1f} s)")
+    _log(f"cli: wall seconds a process (its start and kernel loading included) "
+         f"{ {k: round(v, 3) for k, v in secs.items()} }; phase {time.perf_counter() - t_phase:.1f} s on {smi}")
+    return {"cli pointfusion 480x640": launches}
 
 
 def _build_kernels():
@@ -2972,8 +3274,13 @@ def main() -> int:
     finally:
         for s in started:
             _stop_ranks(s)
-    by_path.update(map_phase(dev, smi))
-    by_path.update(options_phase(dev, smi))
+    ckpt = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))  # phase 31's checkpoint
+    try:
+        by_path.update(map_phase(dev, smi, ckpt))
+        by_path.update(options_phase(dev, smi, ckpt))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    by_path.update(cli_phase(dev, smi))
     for name, entry in entries.items():
         # launches: the ScanNet geometry's run of the path each kernel is
         # timed for; every path's count beside it

@@ -1,4 +1,4 @@
-"""Image decoding for the dataset loaders' Python path.
+"""Image decoding for the dataset loaders' Python path, and PNG writing.
 
 The JAX package's loaders read frames with ``imageio``. A machine may lack
 it, so the Python path takes the first of these routes that imports:
@@ -7,7 +7,8 @@ it, so the Python path takes the first of these routes that imports:
 - ``"pillow"``: Pillow, imageio's own backend for PNG and JPEG, which gives
   the same arrays.
 
-Without either, :func:`imread` raises. The native C++ loader
+Without either, :func:`imread` raises, and so does :func:`imwrite`, which
+writes over the same routes. The native C++ loader
 (:mod:`.native_loader`) comes before both when it builds. Resizing needs
 OpenCV, imported only when a frame's size differs from the size asked for.
 """
@@ -18,7 +19,7 @@ import importlib.util
 
 import numpy as np
 
-__all__ = ["ROUTES", "python_route", "imread", "resize"]
+__all__ = ["ROUTES", "python_route", "imread", "imwrite", "resize"]
 
 ROUTES = ("imageio", "pillow")
 
@@ -50,6 +51,24 @@ def imread(path, route: str | None = None) -> np.ndarray:
                 img = img.convert("RGBA" if "transparency" in img.info else "RGB")
             return np.asarray(img)
     raise ValueError(f"decode route must be one of {ROUTES}, got {route!r}")
+
+
+def imwrite(path, img: np.ndarray, route: str | None = None) -> None:
+    """Writes ``img`` to ``path`` in the format its suffix names (PNG for a
+    frame of a dataset tree: 8-bit (H, W, 3) color or 16-bit (H, W) depth)
+    by ``route`` (default :func:`python_route`)."""
+    route = route or python_route()
+    img = np.ascontiguousarray(img)
+    if route == "imageio":
+        import imageio.v2 as imageio
+
+        imageio.imwrite(path, img)
+    elif route == "pillow":
+        from PIL import Image
+
+        Image.fromarray(img).save(path)
+    else:
+        raise ValueError(f"write route must be one of {ROUTES}, got {route!r}")
 
 
 def resize(img: np.ndarray, height: int, width: int, interpolation: str) -> np.ndarray:

@@ -17,6 +17,8 @@ __all__ = [
     "relative_transformation",
     "transform_pointcloud",
     "transform_normals",
+    "cam2pixel",
+    "pixel2cam",
 ]
 
 
@@ -142,3 +144,33 @@ def transform_normals(normals: torch.Tensor, transform: torch.Tensor) -> torch.T
     if normals.shape[-1] != 3:
         raise ValueError(f"normals must be (..., N, 3), got {tuple(normals.shape)}")
     return matvec(transform[..., None, :3, :3], normals)
+
+
+def cam2pixel(cam_coords_src: torch.Tensor, dst_proj_src: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Transforms camera-frame coordinates to pixel coordinates.
+
+    Legacy helper (reference geometryutils.py:611): applies a (4, 4)
+    projection to (..., H, W, 3) camera coordinates and perspective-divides;
+    a depth within ``eps`` of 0 divides by 1.
+    """
+    if cam_coords_src.shape[-1] != 3:
+        raise ValueError(f"cam_coords_src must be (..., 3), got {tuple(cam_coords_src.shape)}")
+    projected = matvec(dst_proj_src, homogenize_points(cam_coords_src))
+    z = projected[..., 2:3]
+    z_safe = torch.where(z.abs() > eps, z, torch.ones_like(z))
+    return projected[..., :2] / z_safe
+
+
+def pixel2cam(depth: torch.Tensor, intrinsics_inv: torch.Tensor, pixel_coords: torch.Tensor) -> torch.Tensor:
+    """Transforms pixel coordinates and depth into camera-frame points.
+
+    Legacy helper (reference geometryutils.py:671): ``depth * Kinv @ p`` for
+    homogeneous (..., H, W, 3) pixel coordinates; ``depth`` is (..., H, W)
+    or (..., H, W, 1).
+    """
+    kinv = torch.as_tensor(intrinsics_inv)[..., :3, :3].reshape(3, 3)
+    rays = matvec(kinv, pixel_coords)
+    depth = torch.as_tensor(depth)
+    if depth.dim() == rays.dim() - 1:
+        depth = depth[..., None]
+    return rays * depth

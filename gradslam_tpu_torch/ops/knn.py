@@ -208,6 +208,8 @@ def knn(
     src: torch.Tensor,
     tgt: Union[torch.Tensor, KnnTargets],
     tgt_valid: Optional[torch.Tensor] = None,
+    *,
+    use_pallas: Optional[bool] = None,
 ):
     """Batched exact 1-NN from ``src`` to ``tgt``.
 
@@ -216,14 +218,21 @@ def knn(
         tgt: (B, T, 3) target points, or :class:`KnnTargets` from
             :func:`prepare_targets` (``tgt_valid`` is then ignored).
         tgt_valid: optional (B, T) bool; invalid targets never match.
+        use_pallas: accepted for the JAX package's signature only: the
+            device of ``src`` picks the route. None: the Hopper kernel on a
+            CUDA ``src``, :func:`knn_reference` on a CPU one. True asks for
+            the kernel and raises on a CPU ``src``; False asks for the plain
+            version and raises on a CUDA one.
 
     Returns:
         (sq_dists, idx): (B, S) squared distances and (B, S) int32 indices,
-        both detached. A CUDA ``src`` runs the Hopper kernel (float32 only);
-        a CPU ``src`` runs :func:`knn_reference`.
+        both detached. The kernel takes float32 only.
     """
     if src.dim() != 3 or src.shape[-1] != 3:
         raise ValueError(f"src must be (B, S, 3), got {tuple(src.shape)}")
+    if use_pallas is not None and bool(use_pallas) != src.is_cuda:
+        raise ValueError(f"use_pallas={use_pallas} does not fit src on {src.device}: the kernel runs on a CUDA "
+                         "tensor and the plain version on a CPU one")
     if src.is_cuda:
         prep = tgt if isinstance(tgt, KnnTargets) else prepare_targets(tgt, tgt_valid)
         return knn_kernel(src.detach().contiguous(), prep.packed, prep.limit)

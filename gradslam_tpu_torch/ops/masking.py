@@ -11,19 +11,28 @@ import torch
 
 __all__ = ["compact_masked"]
 
+METHODS = ("auto", "scatter", "sort")
 
-def compact_masked(mask: torch.Tensor, out_size: int):
+
+def compact_masked(mask: torch.Tensor, out_size: int, method: str = "auto"):
     """Compacts the True positions of a (B, N) mask into a fixed-size buffer.
 
     Selected indices land in order at the front of a (B, out_size) buffer.
     When more than ``out_size`` entries are selected, the lowest-index ones
-    win and the rest are dropped. Equal to both methods of the JAX package
-    (``scatter`` and ``sort``).
+    win and the rest are dropped.
+
+    Args:
+        method: one of :data:`METHODS`, accepted for the JAX package's
+            signature. Its 'scatter' and 'sort' give identical results, and
+            this one implementation (a cumsum-addressed scatter) gives them
+            too.
 
     Returns:
         (indices, valid): (B, out_size) int32 gather indices (0 where
         invalid) and (B, out_size) bool validity.
     """
+    if method not in METHODS:
+        raise ValueError(f"method must be one of {METHODS}, got {method!r}")
     B, N = mask.shape
     dev = mask.device
     mask = mask.bool()

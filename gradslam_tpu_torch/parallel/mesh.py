@@ -53,6 +53,7 @@ class Mesh:
         self.rank = rank
         self.device = device
         self._groups = groups
+        self._device_mesh = None
 
     def index(self, axis: str) -> int:
         """This rank's coordinate on ``axis``."""
@@ -78,6 +79,26 @@ class Mesh:
         positions and zeros elsewhere; every rank gets the owners' bits
         (floats are summed as their integer bits)."""
         return owner_sum(x, self.group(axis)) if self._runs(axis) else x
+
+    def device_mesh(self):
+        """This mesh as a ``torch.distributed`` ``DeviceMesh`` with dims
+        ('data', 'map'), for ``DTensor``s such as the sharded checkpoint's.
+
+        Built once, from the mesh's own groups, so it opens no group of
+        another backend (ranks that share a card stay on gloo); an axis of
+        one rank gets a group of this rank alone, made without the others.
+        """
+        if self._device_mesh is None:
+            from torch.distributed.device_mesh import DeviceMesh
+
+            groups = [
+                self._groups[axis] if self.shape[axis] > 1
+                else dist.new_group([self.rank], use_local_synchronization=True)
+                for axis in AXES
+            ]
+            ranks = torch.arange(self.shape["data"] * self.shape["map"]).reshape(self.shape["data"], self.shape["map"])
+            self._device_mesh = DeviceMesh.from_group(groups, self.device.type, mesh=ranks, mesh_dim_names=AXES)
+        return self._device_mesh
 
     def map_shard(self, capacity: int):
         """This rank's :class:`~gradslam_tpu_torch.slam.mapshard.MapShard`

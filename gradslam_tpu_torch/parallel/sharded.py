@@ -54,6 +54,11 @@ class DepthCalibParams(nn.Module):
         self.scale = nn.Parameter(torch.tensor(scale, dtype=torch.float32, device=dev))
         self.bias = nn.Parameter(torch.tensor(bias, dtype=torch.float32, device=dev))
 
+    @classmethod
+    def init(cls, device=None) -> "DepthCalibParams":
+        """Scale 1 and bias 0, as the JAX package's ``DepthCalibParams.init()``."""
+        return cls(device=device)
+
     def forward(self, depth: torch.Tensor) -> torch.Tensor:
         return depth * self.scale + self.bias * (depth > 0)
 

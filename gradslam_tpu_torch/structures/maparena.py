@@ -72,6 +72,12 @@ class MapState:
     def label_conf(self) -> torch.Tensor:
         return self.data[..., 11]
 
+    @classmethod
+    def from_arrays(cls, points, normals, colors, ccounts, num_points) -> "MapState":
+        """Packs separate (B, CAP, 3/3/3/1) attribute arrays into arena
+        layout, the label channels zero."""
+        return cls(data=pack_rows(points, normals, colors, ccounts), num_points=num_points)
+
 
 def pack_rows(points, normals, colors, ccounts) -> torch.Tensor:
     """Packs (..., 3/3/3/1) attributes into (..., 12) arena rows."""

@@ -755,3 +755,37 @@ def test_map_sharded_flagship_on_the_card_matches_the_cpu(cuda_device, tmp_path)
     for got in ranks.wait():
         np.testing.assert_array_equal(got["num_points"], m.num_points.numpy())
         np.testing.assert_allclose(got["poses"], p.numpy(), atol=1e-4)
+
+
+def test_knn_use_pallas_on_the_card(cuda_device):
+    """``use_pallas``: None and True launch the kernel on a CUDA tensor, bit
+    for bit as the plain version; False asks for the plain version on the
+    card and raises."""
+    gen = np.random.default_rng(11)
+    src, tgt = _cloud(gen, (2, 300, 3), cuda_device), _cloud(gen, (2, 500, 3), cuda_device)
+    valid = torch.from_numpy(gen.random((2, 500)) > 0.3).to(cuda_device)
+    ref = knn_reference(src, tgt, valid)
+    for use_pallas in (None, True):
+        before = knn_kernel.launches
+        d, i = knn(src, tgt, valid, use_pallas=use_pallas)
+        assert knn_kernel.launches == before + 1, use_pallas
+        assert torch.equal(d, ref[0]) and torch.equal(i, ref[1])
+    before = knn_kernel.launches
+    with pytest.raises(ValueError, match="use_pallas=False"):
+        knn(src, tgt, valid, use_pallas=False)
+    assert knn_kernel.launches == before
+
+
+def test_directory_checkpoint_round_trip_on_the_card(cuda_device, tmp_path):
+    """``use_orbax=True`` from card tensors, loaded back onto the card."""
+    from gradslam_tpu_torch.structures import MapState
+    from gradslam_tpu_torch.utils import load_slam_state, save_slam_state
+
+    gen = torch.Generator().manual_seed(0)
+    m = MapState(torch.randn(2, 64, 12, generator=gen).to(cuda_device),
+                 torch.tensor([10, 64], dtype=torch.int32, device=cuda_device))
+    poses = torch.randn(2, 3, 4, 4, generator=gen).to(cuda_device)
+    save_slam_state(str(tmp_path / "ckpt"), m, poses, use_orbax=True)
+    m2, p2 = load_slam_state(str(tmp_path / "ckpt"), use_orbax=True)
+    assert m2.data.is_cuda and torch.equal(m2.data, m.data) and torch.equal(m2.num_points, m.num_points)
+    assert torch.equal(p2, poses)

@@ -55,11 +55,17 @@ class TestCheckpoint:
         assert tm.num_points.tolist() == [3]
 
     def test_orbax_and_device_errors(self, tmp_path):
-        m = _map(np.random.RandomState(2))
-        with pytest.raises(NotImplementedError, match="A14"):
-            save_slam_state(str(tmp_path / "o"), m, use_orbax=True)
-        with pytest.raises(NotImplementedError, match="A14"):
-            load_slam_state(str(tmp_path / "o"), use_orbax=True)
+        """``use_orbax=True`` writes a torch.distributed.checkpoint directory
+        that loads back bit for bit (tests/test_torch_checkpoint.py holds it
+        across ranks); without a card a load that names no device raises."""
+        rng = np.random.RandomState(2)
+        m = _map(rng)
+        poses = torch.from_numpy(rng.randn(2, 3, 4, 4).astype(np.float32))
+        save_slam_state(str(tmp_path / "o"), m, poses, use_orbax=True)
+        assert (tmp_path / "o" / ".metadata").is_file()
+        m2, poses2 = load_slam_state(str(tmp_path / "o"), use_orbax=True, device="cpu")
+        assert torch.equal(m2.data, m.data) and torch.equal(m2.num_points, m.num_points)
+        assert torch.equal(poses2, poses)
         save_slam_state(str(tmp_path / "s.npz"), m)
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="device='cpu'"):

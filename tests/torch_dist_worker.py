@@ -1,5 +1,6 @@
 """Ranks of the port's distributed tests (tests/test_torch_parallel.py,
-tests/test_torch_sharded.py and tests/test_torch_sharded_options.py).
+tests/test_torch_sharded.py, tests/test_torch_sharded_options.py and
+tests/test_torch_checkpoint.py).
 
     python -m tests.torch_dist_worker <scenario> <rank> <world> <port> <dir>
 
@@ -420,6 +421,53 @@ def _parallel2(rank, res, inputs):
     res["seqpar_chunk_data"], res["seqpar_chunk_num_points"] = r.chunk_maps.data.numpy(), r.chunk_maps.num_points.numpy()
 
 
+# the checkpointed run: the 4x-strided clip's frames in an arena of 2*H*W
+# rows, whose live rows reach map rank 1 of 2 (and rank 2 of 4)
+CKPT_FRAMES = (0, 1, 2)
+CKPT_LOAD_MESHES = ((1, 4), (2, 2))  # (data, map) shapes that load a checkpoint saved at (1, 2)
+
+
+def _ckpt2(rank, res, out):
+    """sharded_slam over make_mesh(data=1, map_=2), its state saved by every
+    rank as its own shard into ``<out>/ckpt`` (``use_orbax=True``), and
+    the assembled state."""
+    from gradslam_tpu_torch.parallel import make_mesh, sharded_slam, unshard_batch, unshard_map_state
+    from gradslam_tpu_torch.slam import SLAMOptions
+    from gradslam_tpu_torch.utils import save_slam_state
+
+    mesh = make_mesh(data=1, map_=2, device="cpu")
+    rgb, dep, K, _ = (_t(x) for x in golden_clip(4, frames=CKPT_FRAMES))
+    H, W = rgb.shape[2:4]
+    m, p = sharded_slam(mesh, rgb, dep, K, None, SLAMOptions(**SHARDED_OPTS), 2 * H * W)
+    save_slam_state(str(out / "ckpt"), m, p, use_orbax=True, mesh=mesh)
+    res["shard_shape"] = np.array(m.data.shape)
+    g = unshard_map_state(mesh, m)
+    res["data"], res["num_points"], res["poses"] = g.data.numpy(), g.num_points.numpy(), unshard_batch(mesh, p).numpy()
+
+
+def _ckpt4(rank, res, out, inputs):
+    """``<out>/ckpt`` loaded over each of CKPT_LOAD_MESHES, beside
+    shard_map_state and shard_batch of the whole state in ``inputs``, and
+    the error of a load over data=4."""
+    from gradslam_tpu_torch.parallel import make_mesh, shard_batch, shard_map_state
+    from gradslam_tpu_torch.structures import MapState
+    from gradslam_tpu_torch.utils import load_slam_state
+
+    whole = MapState(_t(inputs["data"]), _t(inputs["num_points"]))
+    for data, map_ in CKPT_LOAD_MESHES:
+        mesh = make_mesh(data=data, map_=map_, device="cpu")
+        m, p = load_slam_state(str(out / "ckpt"), use_orbax=True, mesh=mesh)
+        ref = shard_map_state(mesh, whole)
+        key = f"{data}x{map_}"
+        res[f"{key}_data"], res[f"{key}_num_points"], res[f"{key}_poses"] = m.data.numpy(), m.num_points.numpy(), p.numpy()
+        res[f"{key}_ref_data"], res[f"{key}_ref_num_points"] = ref.data.numpy(), ref.num_points.numpy()
+        res[f"{key}_ref_poses"] = shard_batch(mesh, _t(inputs["poses"])).numpy()
+    try:  # the batch of 2 over four data groups
+        load_slam_state(str(out / "ckpt"), use_orbax=True, mesh=make_mesh(data=4, map_=1, device="cpu"))
+    except ValueError as e:
+        res["indivisible"] = np.array(str(e))
+
+
 def main(argv) -> None:
     scenario, rank, world, port, out = argv[0], int(argv[1]), int(argv[2]), argv[3], pathlib.Path(argv[4])
     import torch
@@ -441,6 +489,11 @@ def main(argv) -> None:
     elif scenario == "parallel2":
         with np.load(inputs) as z:
             _parallel2(rank, res, {k: z[k] for k in z.files})
+    elif scenario == "ckpt2":
+        _ckpt2(rank, res, out)
+    elif scenario == "ckpt4":
+        with np.load(inputs) as z:
+            _ckpt4(rank, res, out, {k: z[k] for k in z.files})
     else:
         raise ValueError(f"unknown scenario {scenario!r}")
     torch.distributed.destroy_process_group()
