@@ -145,7 +145,30 @@ full-arena fusion) and ``PointFusion(assoc='projective', assoc_window=...)``
      mesh=...)``; this process loads the directory whole on the card, and
      phase 28's (data=1, map=4) ranks each load their shard, each bit-equal
      (one process's arena, ``shard_map_state`` of the whole); the bytes on
-     disk and the save and load seconds.
+     disk and the save and load seconds;
+ 32. the frame step as a captured CUDA graph against the same step op by
+     op (``disable_graphs()``): cells 1-4 and 7 and the 480x640
+     ``PointFusion()`` main path (``slam_sequence``'s eager loop, then
+     ``slam_sequence`` with a fresh graph, its last carry against the eager
+     state, then ``PointFusion()`` through the cached graph), ten
+     ``ICPSLAM.step_state`` steps, ``ICPSLAM.step`` under gradICP (its
+     "map" and "slam" graphs) and gt odometry (its "map" graph) and the
+     managed ScanNet run (cell 9), each with 0 differing elements and the
+     eager run's launches, the capture's seconds, the peak memory and the
+     memory still allocated after each run returns; each path's graphed
+     run once more under ``torch.profiler``, where the port's kernels the
+     device ran must equal the counts the replays added; and the memory
+     ``clear_graphs()`` frees.
+
+On the card ``slam_sequence``, the managed segments and ``ICPSLAM``'s
+steps run as captured CUDA graphs. The phases that record every kernel
+call (2, 5, 12's selections, 14, 15, 16, 20, the ranks' runs and 30's
+in-process CLI) run their paths under ``disable_graphs()``: a captured step
+calls the wrappers only while it is captured, and a recorder's host read
+would break the capture; phase 32 holds the graphed runs to the eager ones.
+A replay does not run the wrappers: each graph adds the launches it
+recorded at capture, and phase 32 holds those counts to the kernels the
+profiler saw on the device.
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after: the KNN kernel 40 times per frame step on the KNN path and
@@ -284,7 +307,8 @@ def _main_path_knn_inputs(colors, depths, K, dev, every=40):
 
     icputils.knn = recording_knn
     try:
-        PointFusion(device=dev)(RGBDImages(colors, depths, K, device=dev))
+        with _eager():
+            PointFusion(device=dev)(RGBDImages(colors, depths, K, device=dev))
     finally:
         icputils.knn = real_knn
     return calls, counts
@@ -447,6 +471,17 @@ def _bilinear2x(x):
     out[:, :, 1:-1:2] = 0.5 * (rows[:, :, :-1] + rows[:, :, 1:])
     out[:, :, -1] = rows[:, :, -1]
     return out.reshape(B, L, 2 * H, 2 * W, C)
+
+
+def _eager():
+    """``disable_graphs()``: a recorder that clones or reads a kernel's
+    inputs at every call drives its path eagerly, op by op. A captured frame
+    step calls the wrappers only while it is captured, and a host read
+    there raises; phase 32 holds the graphed runs equal to the eager ones,
+    so the kernels stay checked on every replay."""
+    from gradslam_tpu_torch import disable_graphs
+
+    return disable_graphs()
 
 
 def _kernels():
@@ -661,7 +696,8 @@ def main_path_winner_inputs(colors, depths, K, dev, **options):
 
     fusionutils.pixel_winner = recording
     try:
-        PointFusion(device=dev, **options)(RGBDImages(colors, depths, K, device=dev))
+        with _eager():
+            PointFusion(device=dev, **options)(RGBDImages(colors, depths, K, device=dev))
     finally:
         fusionutils.pixel_winner = real
     return calls
@@ -1102,7 +1138,8 @@ def gated_run_inputs(colors, depths, K, dev, block_size):
 
     fusionutils.pixel_winner, fusionutils.visible_subarena = rec_winner, rec_visible
     try:
-        PointFusion(device=dev, block_size=block_size)(RGBDImages(colors, depths, K, device=dev))
+        with _eager():
+            PointFusion(device=dev, block_size=block_size)(RGBDImages(colors, depths, K, device=dev))
     finally:
         fusionutils.pixel_winner, fusionutils.visible_subarena = real_w, real_v
     return calls, visible
@@ -1217,7 +1254,8 @@ def labels_phase(dev, name, seed=0, **options):
 def _recording(module, name, calls, keep_out=False):
     """Replaces ``module.name`` by a wrapper that appends each call's
     arguments (tensors cloned), and its output with ``keep_out``, to
-    ``calls``; returns a function that restores it."""
+    ``calls``, the frame steps eager while it is in place (``_eager``);
+    returns a function that restores it."""
     real = getattr(module, name)
     copy = lambda x: x.detach().clone() if torch.is_tensor(x) else x
 
@@ -1226,8 +1264,15 @@ def _recording(module, name, calls, keep_out=False):
         calls.append((tuple(copy(a) for a in args), out if keep_out else None))
         return out
 
+    eager = _eager()
+    eager.__enter__()
     setattr(module, name, wrapper)
-    return lambda: setattr(module, name, real)
+
+    def restore():
+        setattr(module, name, real)
+        eager.__exit__(None, None, None)
+
+    return restore
 
 
 def _drive_object_api(device, knn_calls, winner_calls):
@@ -1444,7 +1489,8 @@ class _Recorder:
     odometry and ``compact_slam_state`` in the lifecycle by wrappers that
     keep each selection's inputs and output, every ``knn_every``-th KNN
     call's, and each compaction's frame index, device time, input arena
-    and live rows after it."""
+    and live rows after it; the frame steps run eagerly until
+    :meth:`close` (``_eager``)."""
 
     def __init__(self, knn_every=50):
         from gradslam_tpu_torch.odometry import icputils
@@ -1482,6 +1528,8 @@ class _Recorder:
             return out
 
         real_knn, real_compact = icputils.knn, lifecycle.compact_slam_state
+        self._eager = _eager()
+        self._eager.__enter__()
         self._restore = [(icputils, "knn", real_knn), (lifecycle, "compact_slam_state", real_compact)]
         for module in (fusionutils, lifecycle):
             real, wrapped = winner(module)
@@ -1492,6 +1540,7 @@ class _Recorder:
     def close(self):
         for module, name, real in self._restore:
             setattr(module, name, real)
+        self._eager.__exit__(None, None, None)
 
     def check(self, phase):
         """Every selection and every kept KNN call against its plain version."""
@@ -3203,6 +3252,329 @@ def cli_phase(dev, smi):
     return {"cli pointfusion 480x640": launches}
 
 
+# ---------------------------------------------------------------------------
+# 32. the captured frame step against the eager one
+# ---------------------------------------------------------------------------
+
+
+def _state_diff(a, b):
+    """Differing elements over every tensor of two SLAMStates (poses,
+    ``num_points``, every arena channel, the candidate rows, ``model_img``
+    and ``model_rows``)."""
+    from gradslam_tpu_torch.slam.stepgraph import state_tensors
+
+    n = 0
+    for x, y in zip(state_tensors(a), state_tensors(b)):
+        _check((x is None) == (y is None) and (x is None or x.shape == y.shape), "graph: state layouts differ")
+        n += 0 if x is None else int((x != y).sum())
+    return n
+
+
+def _timed(fn):
+    """``fn()`` between synchronizations with the launch counts set to 0
+    and the peak memory reset just before it: (result, seconds, launches,
+    peak bytes above those allocated before it, bytes still allocated above
+    them after it returns, its result included; a new graph's static
+    buffers and pool count in both, as its run allocates them)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    _reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0, _launches(), torch.cuda.max_memory_allocated() - before,
+            torch.cuda.memory_allocated() - before)
+
+
+def _profiled_launches(name, fn):
+    """``fn()`` under ``torch.profiler`` with the launch counts set to 0
+    just before it: the counts that the replays added, held against the
+    port's kernels that the device ran (by their CUDA functions' names).
+    Returns the counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    _reset_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counted = _launches()
+    ran = {"knn": 0, "winner": 0}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ran["knn"] += "knn_cluster" in e.name
+            ran["winner"] += "winner_grid" in e.name
+    _check(ran == counted, f"{name}: the device ran {ran} port kernels, the counters say {counted}")
+    return counted
+
+
+def _graph_bytes(graph):
+    """Bytes of a StepGraph's static carry and frame buffers."""
+    from gradslam_tpu_torch.slam.stepgraph import state_tensors
+
+    bufs = state_tensors(graph.carry) + [graph.rgb, graph.depth, graph.intrinsics, graph.gt_pose, graph.labels]
+    return sum(t.untyped_storage().nbytes() for t in bufs if t is not None)
+
+
+def _cleared(name, least):
+    """``clear_graphs()``, with the bytes it frees: allocated (at least
+    ``least``: the static buffers go with their graph) and reserved once
+    the allocator's cache is emptied (the graphs' pools too)."""
+    from gradslam_tpu_torch import clear_graphs
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    clear_graphs()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    freed = (held - torch.cuda.memory_allocated(), reserved - torch.cuda.memory_reserved())
+    _check(freed[0] >= least, f"{name}: clear_graphs() freed {freed[0]} allocated bytes, less than {least}")
+    return freed
+
+
+def _eager_loop(rgb, depth, K, opts, cap):
+    """``slam_sequence``'s eager loop, op by op, keeping its last carried
+    state: (state, poses)."""
+    from gradslam_tpu_torch.slam import slam_init_state, slam_step_state
+
+    with _eager():
+        state = slam_init_state(rgb[:, 0], depth[:, 0], K, opts, cap)
+        poses = [state.pose]
+        for t in range(1, rgb.shape[1]):
+            state = slam_step_state(state, rgb[:, t], depth[:, t], K, opts)
+            poses.append(state.pose)
+    return state, torch.stack(poses, dim=1)
+
+
+def graph_cell(dev, name, clip, options):
+    """One configuration eager and graphed: ``slam_sequence``'s eager loop,
+    then ``slam_sequence`` with a fresh graph (its first step eager, the
+    capture, the replays), whose last carry is held against the eager
+    state, then ``PointFusion(**options)`` through the cached graph (a
+    second sequence) against the eager map and poses, then once more under
+    the profiler. Returns the graphed run's launches."""
+    from gradslam_tpu_torch import PointFusion, RGBDImages, clear_graphs
+    from gradslam_tpu_torch.slam import slam_sequence, stepgraph
+    from gradslam_tpu_torch.structures import map_to_pointclouds
+
+    colors, depths, K = clip
+    B, L, H, W = colors.shape[:4]
+    slam = PointFusion(device=dev, **options)
+    cap = L * H * W
+    rgb, depth, Kt = (torch.from_numpy(x).to(dev) for x in (colors, depths, K))
+    rgbd = RGBDImages(colors, depths, K, device=dev)
+    clear_graphs()
+    (state, poses), eager_s, eager_l, eager_peak, eager_kept = _timed(
+        lambda: _eager_loop(rgb, depth, Kt, slam.opts, cap))
+    (m, p), first_s, first_l, first_peak, first_kept = _timed(
+        lambda: slam_sequence(rgb, depth, Kt, None, slam.opts, cap))
+    (graph,) = stepgraph._SEQUENCES.graphs.values()
+    first = _state_diff(graph.carry, state) + int((p != poses).sum()) + int((m.data != state.map_state.data).sum())
+    (pcs, p2), again_s, again_l, again_peak, again_kept = _timed(lambda: slam(rgbd))
+    ref = map_to_pointclouds(state.map_state)
+    again = int((p2 != poses).sum()) + sum(
+        int((getattr(pcs, a) != getattr(ref, a)).sum()) for a in ("points_padded", "normals_padded", "colors_padded"))
+    again += _state_diff(graph.carry, state)
+    profiled = _profiled_launches(f"graph {name}", lambda: slam(rgbd))
+    capture_s, per_replay, buffers = graph.capture_s, graph.launches, _graph_bytes(graph)
+    del graph
+    freed = _cleared(f"graph {name}", buffers)
+    _log(f"graph {name} B={B} L={L} {H}x{W} {options}: eager {B * L / eager_s:.3f} frames/s ({eager_s:.3f} s), "
+         f"graphed {B * L / first_s:.3f} ({first_s:.3f} s with the first step eager and the capture of "
+         f"{capture_s} s), the cached graph through PointFusion {B * L / again_s:.3f} ({again_s:.3f} s); "
+         f"differing elements {first} (state, poses, arena), {again} (second sequence); launches eager {eager_l}, "
+         f"graphed {first_l}, again {again_l}, profiled {profiled} ({per_replay} a replay); peak memory above "
+         f"the run's start eager {eager_peak}, graphed {first_peak}, again {again_peak} bytes; allocated after "
+         f"the run returns, its result included: eager {eager_kept} (the whole last state), graphed {first_kept}, "
+         f"again {again_kept} (map and poses); clear_graphs() freed {freed[0]} allocated ({buffers} static "
+         f"buffers) and {freed[1]} reserved bytes")
+    _check(first == 0 and again == 0, f"graph {name}: {first} and {again} elements differ from the eager run")
+    expected = {"knn": 0 if slam.opts.assoc == "projective" else (L - 1) * 40, "winner": L}
+    _check(first_l == eager_l == again_l == profiled == expected,
+           f"graph {name}: launches {first_l}, {again_l}, {profiled} vs {eager_l}, expected {expected}")
+    return first_l
+
+
+def _graph_runs(run, name):
+    """``run()`` eager, graphed, graphed again and once more under the
+    profiler: {mode: _timed's tuple}, the profiled run's launches."""
+    runs = {}
+    with _eager():
+        runs["eager"] = _timed(run)
+    runs["graphed"] = _timed(run)
+    runs["graphed again"] = _timed(run)
+    return runs, _profiled_launches(name, run)
+
+
+def _diffs(runs):
+    """Differing elements of each run's list of per-step tensors against
+    the eager run's."""
+    ref = runs["eager"][0]
+    return {mode: sum(int((x != y).sum()) for a, b in zip(r[0], ref) for x, y in zip(a, b) if x is not None)
+            for mode, r in runs.items()}
+
+
+def _run_line(runs, frames=None):
+    return ", ".join(
+        f"{mode} {'' if frames is None else f'{frames / r[1]:.3f} frames/s '}({r[1]:.3f} s) launches {r[2]} "
+        f"peak {r[3]} bytes, allocated after it {r[4]}" for mode, r in runs.items())
+
+
+def graph_step_state(dev, steps=10):
+    """``ICPSLAM.step_state`` over ``steps`` frames of the cycled golden
+    clip, eager, graphed, and graphed again from a fresh ``init_state``:
+    every step's state kept (a graphed step returns a copy that no later
+    step overwrites) and bit-equal. Returns the graphed run's launches."""
+    from gradslam_tpu_torch import PointFusion, RGBDImages, clear_graphs
+    from gradslam_tpu_torch.slam.stepgraph import state_tensors
+
+    colors, depths, K = _golden_clip(steps + 1)
+    gt = _cycled_poses(steps + 1)
+    H, W = colors.shape[2:4]
+    frames = [RGBDImages(colors[:, t : t + 1], depths[:, t : t + 1], K, gt[:, t : t + 1], device=dev)
+              for t in range(steps + 1)]
+    slam = PointFusion(device=dev)
+    clear_graphs()
+
+    def run():
+        state = slam.init_state(frames[0], capacity=(steps + 1) * H * W)
+        out = []
+        for t in range(1, steps + 1):
+            state = slam.step_state(state, frames[t])
+            out.append(state_tensors(state))
+        return out
+
+    runs, profiled = _graph_runs(run, "graph step_state")
+    diffs = _diffs(runs)
+    (graph,) = slam._graphs.graphs.values()
+    capture_s, buffers = graph.capture_s, _graph_bytes(graph)
+    del graph
+    freed = _cleared("graph step_state", buffers)
+    _log(f"graph step_state golden B=2 {steps} steps {H}x{W}: {_run_line(runs)}, profiled {profiled}; capture "
+         f"{capture_s} s; differing elements over every step's state {diffs}; clear_graphs() freed {freed[0]} "
+         f"allocated ({buffers} static buffers) and {freed[1]} reserved bytes")
+    _check(all(d == 0 for d in diffs.values()), f"graph step_state: {diffs} elements differ")
+    expected = {"knn": 40 * steps, "winner": steps + 1}
+    _check(all(r[2] == expected for r in runs.values()) and profiled == expected,
+           f"graph step_state: launches {[r[2] for r in runs.values()]}, profiled {profiled}")
+    return runs["graphed"][2]
+
+
+def graph_icpslam_step(dev, odom, L=6):
+    """``ICPSLAM.step`` on a bare arena over ``L`` frames of the cycled
+    golden clip on one instance (its "map" graph for the first frame, or
+    every frame under gt odometry, and its "slam" graph for the rest):
+    eager, graphed, graphed again through the cached graphs; every step's
+    arena, ``num_points`` and pose bit-equal. Returns the graphed run's
+    launches."""
+    from gradslam_tpu_torch import PointFusion, RGBDImages, clear_graphs, init_map
+
+    colors, depths, K = _golden_clip(L)
+    gt = _cycled_poses(L)
+    B, H, W = colors.shape[0], *colors.shape[2:4]
+    frames = [RGBDImages(colors[:, t : t + 1], depths[:, t : t + 1], K, gt[:, t : t + 1], device=dev)
+              for t in range(L)]
+    slam = PointFusion(device=dev, odom=odom)
+    clear_graphs()
+
+    def run():
+        m, p, out = init_map(B, L * H * W, torch.float32, device=dev), None, []
+        for f in frames:
+            m, p = slam.step(m, f, p)
+            out.append((m.data, m.num_points, p))
+        return out
+
+    runs, profiled = _graph_runs(run, f"graph ICPSLAM.step {odom}")
+    diffs = _diffs(runs)
+    graphs = {k[0]: g._run.capture_s for k, g in slam._graphs.graphs.items()}
+    buffers = sum(a.untyped_storage().nbytes() for g in slam._graphs.graphs.values() for a in g.args)
+    freed = _cleared(f"graph ICPSLAM.step {odom}", buffers)
+    _log(f"graph ICPSLAM.step {odom} golden B={B} L={L} {H}x{W}: {_run_line(runs)}, profiled {profiled}; "
+         f"capture s {graphs}; differing elements over every step's arena, num_points and pose {diffs}; "
+         f"clear_graphs() freed {freed[0]} allocated ({buffers} static buffers) and {freed[1]} reserved bytes")
+    _check(sorted(graphs) == (["map"] if odom == "gt" else ["map", "slam"]), f"graph ICPSLAM.step: graphs {graphs}")
+    _check(all(d == 0 for d in diffs.values()), f"graph ICPSLAM.step {odom}: {diffs} elements differ")
+    expected = {"knn": 0 if odom == "gt" else 40 * (L - 1), "winner": L}
+    _check(all(r[2] == expected for r in runs.values()) and profiled == expected,
+           f"graph ICPSLAM.step {odom}: launches {[r[2] for r in runs.values()]}, profiled {profiled}")
+    return runs["graphed"][2]
+
+
+def graph_managed(dev, capacity_hw=SCANNET_CAPACITY_HW, voxel_size=SCANNET_VOXEL):
+    """Cell 9 (phase 16's managed ScanNet run) eager, twice graphed and
+    once profiled: map and poses bit-equal, launches equal. Returns the
+    graphed run's launches."""
+    from gradslam_tpu_torch import PointFusion, clear_graphs
+    from gradslam_tpu_torch.slam import slam_sequence_managed, stepgraph
+
+    colors, depths, K = _scannet_clip(32)
+    B, L, H, W = colors.shape[:4]
+    rgb, depth, Kt = (torch.from_numpy(x).to(dev) for x in (colors, depths, K))
+    opts = PointFusion(device=dev).opts
+    clear_graphs()
+
+    def run():
+        m, p = slam_sequence_managed(rgb, depth, Kt, None, opts, capacity=int(capacity_hw * H * W),
+                                     voxel_size=voxel_size)
+        return [(m.data, m.num_points, p)]
+
+    runs, profiled = _graph_runs(run, "graph managed")
+    diffs = _diffs(runs)
+    buffers = sum(_graph_bytes(g) for g in stepgraph._SEQUENCES.graphs.values())
+    freed = _cleared("graph managed", buffers)
+    _log(f"graph managed scannet B={B} L={L} {H}x{W}: {_run_line(runs, B * L)}, profiled {profiled}; "
+         f"differing elements {diffs}; clear_graphs() freed {freed[0]} allocated ({buffers} static buffers) "
+         f"and {freed[1]} reserved bytes")
+    _check(all(d == 0 for d in diffs.values()), f"graph managed: {diffs} elements differ")
+    _check(all(r[2] == runs["eager"][2] for r in runs.values()) and profiled == runs["eager"][2],
+           f"graph managed: launches {[r[2] for r in runs.values()]}, profiled {profiled}")
+    return runs["graphed"][2]
+
+
+def _main_path_clip(dev, n=2 * E2E_SEQLEN):
+    """Phase 15's rendered scene at the sensor's 480x640 as (B=2, L=16)
+    float32 frames with the TUM loader's intrinsics."""
+    H, W = E2E_HW
+    colors, depths, _ = _render_e2e(dev, n, H, W)
+    K = np.array([[525.0, 0, 319.5, 0], [0, 525.0, 239.5, 0], [0, 0, 1, 0], [0, 0, 0, 1]], np.float32)
+    return (colors.astype(np.float32).reshape(2, n // 2, H, W, 3),
+            depths.astype(np.float32).reshape(2, n // 2, H, W, 1), np.broadcast_to(K, (2, 1, 4, 4)).copy())
+
+
+def graph_phase(dev, smi):
+    """Phase 32: the frame step as a captured CUDA graph against the same
+    step op by op (``disable_graphs()``), 0 differing elements everywhere:
+    cells 1-4 and 7, the 480x640 ``PointFusion()`` main path,
+    ``ICPSLAM.step_state`` over 10 steps, ``ICPSLAM.step`` under gradICP
+    and gt odometry and the managed run of cell 9. Returns the graphed
+    runs' launches by path."""
+    from gradslam_tpu_torch import clear_graphs
+
+    t0 = time.perf_counter()
+    HW, HW4 = 120 * 160, 240 * 320
+    golden, scannet = _golden_clip(10), _scannet_clip(16)
+    out = {}
+    for name, clip, options in (
+        ("cell 1 golden", golden, {}),
+        ("cell 2 scannet", scannet, {}),
+        ("cell 3 projective golden", golden, dict(assoc="projective", assoc_window=2 * HW)),
+        ("cell 4 projective scannet", scannet,
+         dict(assoc="projective", assoc_window=3 * HW4, active_capacity=(3 * HW4) // 2)),
+        ("cell 7 gated scannet", scannet, dict(block_size=GATE_BLOCK)),
+        ("main path 480x640", _main_path_clip(dev), {}),
+    ):
+        out[f"graphed {name}"] = graph_cell(dev, name, clip, options)
+    out["graphed step_state golden"] = graph_step_state(dev)
+    for odom in ("gradicp", "gt"):
+        out[f"graphed ICPSLAM.step {odom} golden"] = graph_icpslam_step(dev, odom)
+    out["graphed managed scannet"] = graph_managed(dev)
+    clear_graphs()
+    _log(f"graph phase: {time.perf_counter() - t0:.1f} s on {smi}")
+    return out
+
+
 def _build_kernels():
     """Builds every kernel's source at once (one nvcc each) and loads them."""
     kernels = _kernels()
@@ -3281,6 +3653,7 @@ def main() -> int:
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     by_path.update(cli_phase(dev, smi))
+    by_path.update(graph_phase(dev, smi))
     for name, entry in entries.items():
         # launches: the ScanNet geometry's run of the path each kernel is
         # timed for; every path's count beside it

@@ -3,7 +3,10 @@
 Differentiable dense RGB-D SLAM for an NVIDIA Hopper card: the same public
 API and results as the JAX package, with its TPU kernel rewritten by hand
 in CUDA (``csrc/``). Entry points run on ``"cuda"`` unless given
-``device="cpu"``; with no card they raise instead of falling back.
+``device="cpu"``; with no card they raise instead of falling back. On the
+card the frame step runs as a captured CUDA graph, the counterpart of
+``jax.jit``; ``disable_graphs()`` runs it op by op (``jax.disable_jit``)
+and ``clear_graphs()`` drops the captured steps (``jax.clear_caches``).
 
     >>> from gradslam_tpu_torch import RGBDImages, PointFusion
     >>> rgbdimages = RGBDImages(colors, depths, intrinsics)
@@ -11,7 +14,7 @@ in CUDA (``csrc/``). Entry points run on ``"cuda"`` unless given
 """
 
 from . import config, datasets, geometry, metrics, odometry, ops, parallel, slam, structures, utils, viz
-from .slam import ICPSLAM, PointFusion
+from .slam import ICPSLAM, PointFusion, clear_graphs, disable_graphs
 from .structures import MapState, Pointclouds, RGBDImages, init_map
 
 __version__ = "0.1.0"
@@ -34,5 +37,7 @@ __all__ = [
     "RGBDImages",
     "MapState",
     "init_map",
+    "disable_graphs",
+    "clear_graphs",
     "__version__",
 ]

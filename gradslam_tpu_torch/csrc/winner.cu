@@ -36,7 +36,13 @@
 //   4. No memset: `best` is all ones on entry. The wrapper keeps two such
 //      tables a stream and alternates them; phase 2 also resets to all ones
 //      the first `n_other` entries of the other table, which the previous
-//      call on the stream left dirty. So one grid barrier is enough.
+//      call on the stream left dirty. So one grid barrier is enough. (A
+//      call captured into a CUDA graph gets a table of its own, which the
+//      graph fills before the kernel: ops/winner.py.)
+//
+// The launch goes through cudaLaunchKernelEx with the cooperative
+// attribute, which a CUDA graph can hold as a kernel node, so a stream
+// capture takes it as it takes the eager call.
 //
 // When every candidate of a warp's round lands on one pixel (a hot pixel),
 // the warp folds in registers first and issues one atomic. atomicMin
@@ -173,16 +179,24 @@ extern "C" int gst_pixel_winner_max_blocks(int* blocks) {
 // pix, k_hi, k_lo, slot (B, N) int32; best (B * P) uint64, all ones; other
 // (n_other) uint64, reset to all ones here; out (B, P) int32; all
 // contiguous on one device. One cooperative launch of `blocks` blocks on
-// `stream`; returns the launch's own cudaError_t, not an error left pending
-// by an earlier call (a launch the card refuses never runs).
+// `stream` (captured when the stream is); returns the launch's own
+// cudaError_t, not an error left pending by an earlier call (a launch the
+// card refuses never runs).
 extern "C" int gst_pixel_winner(const int* pix, const int* k_hi, const int* k_lo,
                                 const int* slot, unsigned long long* best,
                                 unsigned long long* other, long long n_other, int* out, int B,
                                 int N, int P, int sentinel, int blocks, void* stream) {
   if (B <= 0 || P <= 0) return static_cast<int>(cudaSuccess);
   if (N < 0 || blocks < 1 || n_other < 0) return static_cast<int>(cudaErrorInvalidValue);
-  void* args[] = {&pix, &k_hi, &k_lo, &slot, &best, &other, &n_other, &out, &B, &N, &P, &sentinel};
-  return static_cast<int>(
-      cudaLaunchCooperativeKernel(reinterpret_cast<void*>(winner_grid), dim3(blocks),
-                                  dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream)));
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeCooperative;
+  attr.val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, winner_grid, pix, k_hi, k_lo, slot, best, other,
+                                             n_other, out, B, N, P, sentinel));
 }

@@ -13,7 +13,11 @@ kernel in ``csrc/winner.cu``: one cooperative launch a selection, two folds
 (a 64-bit ``atomicMin`` of the key into a per-pixel table, then a 32-bit one
 of the slot among the key's ties) with one grid barrier between them, and
 no memset: the wrapper keeps two all-ones tables a stream, and each call
-resets the one the call before it used. On a CPU tensor it runs
+resets the one the call before it used. That schedule lives on the host, so
+a call made while its stream is captured into a CUDA graph takes a table of
+its own instead, allocated in the graph and filled with ones by the graph
+before the kernel at every replay (:meth:`_WinnerKernel.tables`). On a CPU
+tensor it runs
 :func:`pixel_winner_reference`, the sort form of the same function. There is
 no fallback between the two: a CUDA input that the kernel does not take
 raises. The result is exact on both.
@@ -230,8 +234,10 @@ class _WinnerKernel:
             if not 1 <= blocks <= most:
                 raise ValueError(f"winner kernel: {blocks} blocks, the card holds 1 to {most}")
             stream = torch.cuda.current_stream().cuda_stream
-            tables = self._tables.setdefault((dev.index, stream), _Tables())
-            best, other, n_other = tables.take(B * P, dev)
+            best, other, n_other, fill, done = self.tables(B * P, dev, stream,
+                                                           torch.cuda.is_current_stream_capturing())
+            if fill:
+                best.fill_(-1)
             err = fn(
                 pix.data_ptr(), k_hi.data_ptr(), k_lo.data_ptr(), slot.data_ptr(), best.data_ptr(),
                 other.data_ptr(), n_other, out.data_ptr(), B, N, P, int(sentinel), blocks, stream,
@@ -239,11 +245,31 @@ class _WinnerKernel:
         if err != 0:
             # whatever the error, the next call on the stream starts from
             # fresh all-ones tables
-            del self._tables[(dev.index, stream)]
+            self._tables.pop((dev.index, stream), None)
             raise RuntimeError(f"winner kernel launch failed: cudaError {err}")
-        tables.done(B * P)
+        done()
         self.launches += 1
         return out
+
+    def tables(self, n: int, device, stream, capturing: bool):
+        """The key tables of one call of ``n`` table entries on ``stream``:
+        ``(best, other, n_other, fill, done)``. The kernel folds into
+        ``best``, which must hold all ones, and resets the first ``n_other``
+        entries of ``other``; the caller fills ``best`` with ones first when
+        ``fill`` is true and calls ``done()`` after a launch.
+
+        Eagerly the stream's two tables alternate (:class:`_Tables`). A
+        captured call is replayed without this host code, so it takes a
+        table of its own, allocated in the graph's pool and filled by the
+        graph before the kernel at every replay: every replay folds into a
+        clean table, whatever ran before it.
+        """
+        if capturing:
+            best = torch.empty((n,), dtype=torch.int64, device=device)
+            return best, best, 0, True, lambda: None
+        tables = self._tables.setdefault((device.index, stream), _Tables())
+        best, other, n_other = tables.take(n, device)
+        return best, other, n_other, False, lambda: tables.done(n)
 
 
 winner_kernel = _WinnerKernel()

@@ -1,9 +1,12 @@
 """ICP-SLAM, the end-to-end dense SLAM driver (PyTorch port of
 gradslam_tpu.slam.icpslam).
 
-A localize-then-map loop over frames: the frame loop is a Python loop whose
-body never waits on the host (no ``.item()``, no data-dependent shapes), so
-the card runs ahead of it.
+A localize-then-map loop over frames whose body never waits on the host (no
+``.item()``, no data-dependent shapes). On a CUDA device that body is
+captured once per set of static arguments as a CUDA graph and replayed for
+every frame after the first (``slam/stepgraph.py``: the counterpart of the
+JAX package's ``jax.jit`` + ``lax.scan``); elsewhere, under a gradient or on
+a map-sharded arena it runs as a Python loop, op by op.
 
   - Localization projects the live map (or the candidate rows carried from
     the previous fusion step) into the previous frame, keeps the points on
@@ -47,6 +50,7 @@ from ..structures.rgbdimages import (
     compute_vertex_map,
 )
 from ..utils.device import resolve_device
+from . import stepgraph
 from .fusionutils import (
     _project_points_to_frame,
     _resolve_assoc_window,
@@ -467,6 +471,11 @@ def slam_sequence(rgb_seq, depth_seq, intrinsics, poses_seq, opts: SLAMOptions, 
     lab = (lambda t: None) if labels_seq is None else (lambda t: labels_seq[:, t])
     state = slam_init_state(rgb_seq[:, 0], depth_seq[:, 0], intrinsics, opts, capacity, pose0, labels=lab(0),
                             shard=shard)
+    gt_seq = poses_seq if opts.odom == "gt" else None
+    if L > 1 and stepgraph.eager_reason((rgb_seq, depth_seq, intrinsics, poses_seq, labels_seq), shard) is None:
+        graph = stepgraph.sequence_graph(state, rgb_seq, depth_seq, intrinsics, gt_seq, opts, labels_seq, shard)
+        last, poses = graph.run(state, rgb_seq, depth_seq, intrinsics, gt_seq, labels_seq, 1, L)
+        return last.map_state, torch.cat([state.pose[:, None], poses], dim=1)
     poses = [state.pose]
     for t in range(1, L):
         gt = poses_seq[:, t] if opts.odom == "gt" else None
@@ -597,6 +606,7 @@ class ICPSLAM:
             dist_thresh=dist_thresh, fusion=self._fusion, map_capacity=map_capacity,
             tgt_capacity=tgt_capacity, **kwargs,
         )
+        self._graphs = stepgraph.GraphCache()  # step's and step_state's captured steps
 
     def __call__(self, frames: RGBDImages):
         return self.forward(frames)
@@ -636,12 +646,24 @@ class ICPSLAM:
         """
         rgbd = self._frames(live_frame)
         rgb, depth = rgbd.rgb_image[:, 0], rgbd.depth_image[:, 0]
+        opts = self.opts
         if prev_pose is None or self.odom == "gt":
             if not rgbd.has_poses:
                 raise ValueError("live_frame must have poses for the first frame or gt odometry")
             pose = rgbd.poses[:, 0]
-            return _map_update(map_state, pose, rgb, depth, rgbd.intrinsics, self.opts), pose
-        return slam_step(map_state, prev_pose, rgb, depth, rgbd.intrinsics, self.opts)
+            fn = lambda d, n, p, r, dep, k: _map_update(MapState(d, n), p, r, dep, k, opts)
+            return self._frame_step("map", fn, (map_state.data, map_state.num_points, pose, rgb, depth,
+                                                rgbd.intrinsics)), pose
+        fn = lambda d, n, p, r, dep, k: slam_step(MapState(d, n), p, r, dep, k, opts)
+        return self._frame_step("slam", fn, (map_state.data, map_state.num_points, prev_pose, rgb, depth,
+                                             rgbd.intrinsics))
+
+    def _frame_step(self, name, fn, args):
+        """``fn(*args)``: the "map" or "slam" step as its captured graph
+        when the graph rules allow (``slam/stepgraph.py``), else eagerly."""
+        if stepgraph.eager_reason(args) is not None:
+            return fn(*args)
+        return self._graphs.get(stepgraph.FrameGraph.key(name, args), lambda: stepgraph.FrameGraph(fn, args))(*args)
 
     def init_state(self, live_frame: RGBDImages, capacity: Optional[int] = None) -> SLAMState:
         """Starts an incremental run: maps the first frame into a fresh
@@ -655,14 +677,25 @@ class ICPSLAM:
         )
 
     def step_state(self, state: SLAMState, live_frame: RGBDImages) -> SLAMState:
-        """One incremental step on a :class:`SLAMState`."""
+        """One incremental step on a :class:`SLAMState`.
+
+        On a CUDA device the step is a captured graph
+        (``slam/stepgraph.py``) that advances this instance's static carry
+        in place, as the JAX package's ``donate_argnums=0`` updates the
+        arena: ``state`` is copied into the carry, and the returned state
+        is a copy of the new carry that the caller owns (no later step
+        overwrites it).
+        """
         rgbd = self._frames(live_frame)
         gt = rgbd.poses[:, 0] if self.opts.odom == "gt" and rgbd.has_poses else None
         if self.opts.odom == "gt" and gt is None:
             raise ValueError("gt odometry requires live_frame poses")
-        return slam_step_state(
-            state, rgbd.rgb_image[:, 0], rgbd.depth_image[:, 0], rgbd.intrinsics, self.opts, gt
-        )
+        rgb, depth, K = rgbd.rgb_image[:, 0], rgbd.depth_image[:, 0], rgbd.intrinsics
+        if stepgraph.eager_reason((rgb, depth, K, gt, *stepgraph.state_tensors(state))) is not None:
+            return slam_step_state(state, rgb, depth, K, self.opts, gt)
+        args = (self.opts, state, rgb, depth, K, gt)
+        graph = self._graphs.get(stepgraph.StepGraph.key(*args), lambda: stepgraph.StepGraph(*args))
+        return graph.step_state(state, rgb, depth, K, gt)
 
     def __repr__(self):
         return f"{type(self).__name__}(odom={self.odom!r}, device={self.device}, opts={self.opts})"

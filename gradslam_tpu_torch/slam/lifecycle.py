@@ -14,6 +14,12 @@ references (the odometry candidates, the projective model image) are
 rebuilt afterwards by projecting the compacted arena at the current pose
 (:func:`refresh_slam_state`), whose per-pixel nearest point is one
 selection of the winner kernel.
+
+On a CUDA device :func:`slam_sequence_managed` runs each segment through the
+captured frame step of ``slam/stepgraph.py`` (the JAX package's jitted
+``_scan_segment``): compaction changes the arena's contents, not its shapes,
+so every segment replays the same graph. :func:`slam_sequence_compacted`,
+whose use is its gradient, runs its frames eagerly.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from ..geometry import inverse_transformation, transform_pointcloud
 from ..ops.masking import compact_masked
 from ..ops.winner import pixel_winner, winner_keys
 from ..structures.maparena import MapState, compact_map, voxel_compact_map
+from . import stepgraph
 from .fusionutils import _resolve_model_rows, _take, project_map_to_frame
 from .icpslam import SLAMOptions, SLAMState, candidate_capacity, slam_init_state, slam_step_state
 
@@ -123,6 +130,19 @@ def _run_frames(state: SLAMState, rgb_seq, depth_seq, intrinsics, poses_seq, opt
         state = slam_step_state(state, rgb_seq[:, t], depth_seq[:, t], intrinsics, opts, gt)
         poses.append(state.pose)
     return state, poses
+
+
+def _run_segment(state: SLAMState, rgb_seq, depth_seq, intrinsics, poses_seq, opts: SLAMOptions,
+                 has_poses: bool, t0: int, t1: int):
+    """:func:`_run_frames` through the captured step when the graph rules
+    of ``slam/stepgraph.py`` allow (the counterpart of the JAX package's
+    jitted ``_scan_segment``); returns a state the caller owns."""
+    gt_seq = poses_seq if opts.odom == "gt" and has_poses else None
+    if stepgraph.eager_reason((rgb_seq, depth_seq, intrinsics, gt_seq, *stepgraph.state_tensors(state))) is not None:
+        return _run_frames(state, rgb_seq, depth_seq, intrinsics, poses_seq, opts, has_poses, t0, t1)
+    graph = stepgraph.sequence_graph(state, rgb_seq, depth_seq, intrinsics, gt_seq, opts)
+    state, poses = graph.run(state, rgb_seq, depth_seq, intrinsics, gt_seq, None, t0, t1)
+    return state, list(poses.unbind(1))
 
 
 def _check_options(opts: SLAMOptions, poses_seq, what: str):
@@ -301,7 +321,7 @@ def slam_sequence_managed(
             state = compact_slam_state(state, intrinsics, opts, H, W, policy=policy, voxel_size=voxel_size,
                                        min_ccount=min_ccount, keep_recent=keep_recent)
         end = min(t + segment_len, L)
-        state, p = _run_frames(state, rgb_seq, depth_seq, intrinsics, poses_seq, opts, has_poses, t, end)
+        state, p = _run_segment(state, rgb_seq, depth_seq, intrinsics, poses_seq, opts, has_poses, t, end)
         poses += p
         t = end
         # in-loop closure at the boundary (not the last: the whole

@@ -12,13 +12,14 @@ match the same run on the CPU to 1e-4 in the poses (float32 sums in another
 order).
 """
 
+import contextlib
 import pathlib
 
 import numpy as np
 import pytest
 import torch
 
-from gradslam_tpu_torch import PointFusion, RGBDImages
+from gradslam_tpu_torch import PointFusion, RGBDImages, clear_graphs, disable_graphs
 from gradslam_tpu_torch.ops import (
     knn,
     knn_kernel,
@@ -235,7 +236,10 @@ def test_winner_kernel_after_a_refused_launch(cuda_device):
 @pytest.mark.parametrize("assoc", ["knn", "projective"])
 def test_winner_kernel_on_the_main_paths_inputs(cuda_device, assoc):
     """Every selection of a PointFusion run on the golden clip, captured as
-    the fusion step hands it to the kernel: bit-equal to the plain version."""
+    the fusion step hands it to the kernel: bit-equal to the plain version.
+    The run is eager (a captured step calls the wrapper only while it is
+    captured); ``test_captured_frame_step_equals_the_eager_one`` holds the
+    graphed runs to the eager ones."""
     from gradslam_tpu_torch.slam import fusionutils
 
     colors, depths, K = _clip()
@@ -248,7 +252,8 @@ def test_winner_kernel_on_the_main_paths_inputs(cuda_device, assoc):
     options = {"assoc": "projective", "assoc_window": 2 * 120 * 160} if assoc == "projective" else {}
     fusionutils.pixel_winner = recording
     try:
-        PointFusion(device=cuda_device, **options)(RGBDImages(colors, depths, K, device=cuda_device))
+        with disable_graphs():
+            PointFusion(device=cuda_device, **options)(RGBDImages(colors, depths, K, device=cuda_device))
     finally:
         fusionutils.pixel_winner = real
     assert len(calls) == colors.shape[1]
@@ -789,3 +794,151 @@ def test_directory_checkpoint_round_trip_on_the_card(cuda_device, tmp_path):
     m2, p2 = load_slam_state(str(tmp_path / "ckpt"), use_orbax=True)
     assert m2.data.is_cuda and torch.equal(m2.data, m.data) and torch.equal(m2.num_points, m.num_points)
     assert torch.equal(p2, poses)
+
+
+# the captured frame step (gradslam_tpu_torch/slam/stepgraph.py)
+
+GRAPH_OPTIONS = {
+    "knn": dict(),
+    "projective dense": dict(assoc="projective", assoc_window=2 * 120 * 160, model_rows="dense"),
+    "gated": dict(block_size=4096),
+}
+
+
+def _cycled_clip(L):
+    c, d, K = _clip()
+    idx = [i % c.shape[1] for i in range(L)]
+    return c[:, idx], d[:, idx], K
+
+
+@pytest.mark.parametrize("name", list(GRAPH_OPTIONS))
+def test_captured_frame_step_equals_the_eager_one(cuda_device, name):
+    """slam_sequence with its step captured and replayed, twice (the second
+    sequence through the cached graph), against the same step op by op:
+    0 differing elements in the poses and the arena, the same launches."""
+    from gradslam_tpu_torch.slam import slam_sequence
+
+    c, d, K = (torch.from_numpy(x).to(cuda_device) for x in _cycled_clip(6))
+    opts = PointFusion(device=cuda_device, **GRAPH_OPTIONS[name]).opts
+    cap = 6 * 120 * 160
+    clear_graphs()
+    runs = []
+    for graphed in (False, True, True):
+        before = (knn_kernel.launches, winner_kernel.launches)
+        if graphed:
+            m, p = slam_sequence(c, d, K, None, opts, cap)
+        else:
+            with disable_graphs():
+                m, p = slam_sequence(c, d, K, None, opts, cap)
+        runs.append((m, p, (knn_kernel.launches - before[0], winner_kernel.launches - before[1])))
+    (m0, p0, l0) = runs[0]
+    assert l0 == ((0 if name.startswith("projective") else 5 * 40), 6)
+    for m, p, launches in runs[1:]:
+        assert torch.equal(p, p0) and torch.equal(m.data, m0.data) and torch.equal(m.num_points, m0.num_points)
+        assert launches == l0
+    clear_graphs()
+
+
+def test_a_host_read_in_the_captured_step_raises(cuda_device):
+    """A step that reads the host cannot be captured: slam_sequence raises
+    (nothing reruns the step eagerly), and the next run captures anew."""
+    from gradslam_tpu_torch.slam import icpslam, slam_sequence
+
+    c, d, K = (torch.from_numpy(x).to(cuda_device) for x in _cycled_clip(4))
+    opts = PointFusion(device=cuda_device).opts
+    real = icpslam._localize
+
+    def reading(*args, **kwargs):
+        pose = real(*args, **kwargs)
+        float(pose.sum())
+        return pose
+
+    clear_graphs()
+    icpslam._localize = reading
+    try:
+        with pytest.raises(Exception):
+            slam_sequence(c, d, K, None, opts, 4 * 120 * 160)
+    finally:
+        icpslam._localize = real
+    clear_graphs()
+    m, p = slam_sequence(c, d, K, None, opts, 4 * 120 * 160)
+    with disable_graphs():
+        m0, p0 = slam_sequence(c, d, K, None, opts, 4 * 120 * 160)
+    assert torch.equal(p, p0) and torch.equal(m.data, m0.data)
+
+
+def test_step_state_returns_a_state_the_caller_owns_on_the_card(cuda_device):
+    """ICPSLAM.step_state on the card advances the instance's static carry
+    and returns a copy of it: every state kept from an earlier step, and
+    states of two runs interleaved on one instance, stay bit-equal to the
+    eager steps'."""
+    from gradslam_tpu_torch.slam.stepgraph import state_tensors
+
+    c, d, K = _cycled_clip(5)
+    frame = lambda t: RGBDImages(c[:, t : t + 1], d[:, t : t + 1], K, device=cuda_device)
+    slam = PointFusion(device=cuda_device)
+    clear_graphs()
+    states = {}
+    for graphed in (False, True):
+        out = [slam.init_state(frame(0), capacity=5 * 120 * 160)]
+        for t in range(1, 5):
+            with contextlib.nullcontext() if graphed else disable_graphs():
+                out.append(slam.step_state(out[-1], frame(t)))
+        states[graphed] = out
+    (graph,) = slam._graphs.graphs.values()
+    carry = {x.data_ptr() for x in state_tensors(graph.carry) if x is not None}
+    interleaved = [slam.step_state(states[False][1], frame(2)), slam.step_state(states[False][2], frame(3))]
+    for a, b in zip(states[False] + states[False][2:4], states[True] + interleaved):
+        assert not carry & {x.data_ptr() for x in state_tensors(b) if x is not None}
+        assert all(x is None or torch.equal(x, y) for x, y in zip(state_tensors(a), state_tensors(b)))
+    clear_graphs()
+
+
+@pytest.mark.parametrize("odom", ["gradicp", "gt"])
+def test_icpslam_step_graphed_equals_eager(cuda_device, odom):
+    """ICPSLAM.step on a bare arena through its "map" and "slam" graphs,
+    twice on one instance (the second run replays both), against the same
+    steps op by op: every step's arena, num_points and pose bit-equal, the
+    same launches."""
+    from gradslam_tpu_torch import init_map
+
+    c, d, K = _cycled_clip(5)
+    gt = np.load(DATA / "poses.npy").astype(np.float32)[:, [i % 3 for i in range(5)]]
+    frames = [RGBDImages(c[:, t : t + 1], d[:, t : t + 1], K, gt[:, t : t + 1], device=cuda_device) for t in range(5)]
+    slam = PointFusion(device=cuda_device, odom=odom)
+    clear_graphs()
+    runs = []
+    for graphed in (False, True, True):
+        before = (knn_kernel.launches, winner_kernel.launches)
+        m, p, out = init_map(2, 5 * 120 * 160, torch.float32, device=cuda_device), None, []
+        with contextlib.nullcontext() if graphed else disable_graphs():
+            for f in frames:
+                m, p = slam.step(m, f, p)
+                out.append((m.data, m.num_points, p))
+        runs.append((out, (knn_kernel.launches - before[0], winner_kernel.launches - before[1])))
+    assert runs[0][1] == (0 if odom == "gt" else 4 * 40, 5)
+    for out, launches in runs[1:]:
+        assert launches == runs[0][1]
+        for a, b in zip(out, runs[0][0]):
+            assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert sorted(k[0] for k in slam._graphs.graphs) == (["map"] if odom == "gt" else ["map", "slam"])
+    clear_graphs()
+
+
+def test_clear_graphs_frees_a_graphs_buffers(cuda_device):
+    """A cached sequence graph keeps its static carry and frame buffers
+    allocated after its run returns; clear_graphs() frees them."""
+    from gradslam_tpu_torch.slam import slam_sequence, stepgraph
+
+    c, d, K = (torch.from_numpy(x).to(cuda_device) for x in _cycled_clip(4))
+    opts = PointFusion(device=cuda_device).opts
+    clear_graphs()
+    slam_sequence(c, d, K, None, opts, 4 * 120 * 160)
+    (graph,) = stepgraph._SEQUENCES.graphs.values()
+    bufs = stepgraph.state_tensors(graph.carry) + [graph.rgb, graph.depth, graph.intrinsics]
+    least = sum(t.untyped_storage().nbytes() for t in bufs if t is not None)
+    del graph, bufs
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    clear_graphs()
+    assert held - torch.cuda.memory_allocated() >= least

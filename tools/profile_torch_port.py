@@ -10,12 +10,18 @@ golden clip; window 3*H*W and active buffer 1.5*H*W at the ScanNet
 geometry, as chip_smoke.py runs them), and ``PointFusion(block_size=4096)``
 at the ScanNet geometry (block gating: association over the visible blocks
 only), each once to warm up, ``--reps`` times timed (the median is
-reported) and once under ``torch.profiler``. For each it reports the wall
-time per frame step without and with the profiler, the device time summed
-over kernels, the device's busy and idle share of the wall time, kernel
-launches per frame step, the share of device time in scan kernels (the
-cumsums of ``ops.masking.compact_masked`` and of the appends), and the
-kernels that take the most device time. ``--only`` keeps the points whose
+reported) and once under ``torch.profiler``. On the card the frame step
+runs as a captured CUDA graph (``gradslam_tpu_torch/slam/stepgraph.py``);
+with ``--eager`` each point also runs under ``disable_graphs()``, op by op,
+in turns with the graphed runs (eager, graphed, ..., each warmed up first).
+For each it reports the wall time per frame step without and with the
+profiler, the device time summed over kernels, the device's busy and idle
+share of the wall time, device kernels per frame step, the host's launch
+calls per frame step (``cudaLaunchKernel*``, ``cuLaunchKernel*`` and
+``cudaGraphLaunch``) and its copy and memset calls, the share of device
+time in scan kernels (the cumsums of ``ops.masking.compact_masked`` and of
+the appends), and the kernels that take the most device time. ``--only``
+keeps the points whose
 name contains one of its comma-separated words. With
 ``--backward`` it also profiles the backward of a training step, the
 gradient of ``slam_loss`` (the depth-calibration loss through
@@ -39,29 +45,46 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 # CUDA functions of each hand-written kernel (csrc/*.cu)
 PORT_KERNELS = {"knn": ("knn_cluster",), "winner": ("winner_grid",)}
+# host calls of the CUDA runtime (cuda*) and its low-level API (cu*) that start device work
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchCooperativeKernel", "cuLaunchKernel", "cudaGraphLaunch",
+                "cuGraphLaunch")
+COPY_CALLS = ("cudaMemcpy", "cudaMemset", "cuMemcpy", "cuMemset")
 
 
-def profile_point(name, colors, depths, K, dev, reps=1, top=15, **options):
+def profile_point(name, colors, depths, K, dev, reps=1, top=15, eager=False, **options):
+    """One point graphed and, with ``eager``, op by op, in turns; returns
+    its reports."""
+    import contextlib
+
     from torch.profiler import ProfilerActivity, profile
 
-    from gradslam_tpu_torch import PointFusion, RGBDImages
+    from gradslam_tpu_torch import PointFusion, RGBDImages, disable_graphs
 
     rgbd = RGBDImages(colors, depths, K, device=dev)
     slam = PointFusion(device=dev, **options)
-    slam(rgbd)  # warm-up
+    modes = ("eager", "graphed") if eager else ("graphed",)
+    mode = lambda m: disable_graphs() if m == "eager" else contextlib.nullcontext()
+    for m in modes:
+        with mode(m):
+            slam(rgbd)  # warm-up: the kernels' build, the graph's capture
     torch.cuda.synchronize()
-    walls = []
+    walls = {m: [] for m in modes}
     for _ in range(reps):
-        t0 = time.perf_counter()
-        slam(rgbd)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        slam(rgbd)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    return _report(name, prof, wall, walls, colors.shape[:2], top)
+        for m in modes:
+            with mode(m):
+                t0 = time.perf_counter()
+                slam(rgbd)
+                torch.cuda.synchronize()
+            walls[m].append(time.perf_counter() - t0)
+    out = []
+    for m in modes:
+        with mode(m), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            slam(rgbd)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        out.append(_report(f"{name} [{m}]", prof, wall, walls[m], colors.shape[:2], top))
+    return out
 
 
 def profile_backward(name, colors, depths, K, gt, dev, reps=1, top=15):
@@ -101,6 +124,16 @@ def profile_backward(name, colors, depths, K, gt, dev, reps=1, top=15):
     return _report(name, prof, wall, walls, (B, L), top)
 
 
+def _host_calls(prof, names):
+    """Host calls of the CUDA runtime or its low-level API whose names start with one
+    of ``names``, by name."""
+    calls = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith(names):
+            calls[e.name] = calls.get(e.name, 0) + 1
+    return calls
+
+
 def _report(name, prof, wall, walls, batch_frames, top):
     """The device's share of one profiled run and its kernels by name."""
     wall_plain = sorted(walls)[len(walls) // 2]
@@ -132,6 +165,7 @@ def _report(name, prof, wall, walls, batch_frames, top):
         us = sum(v[1] for v in hits)
         ours[label] = dict(launches=sum(v[0] for v in hits), ms=us / 1e3,
                            share_of_device=us / busy_us if busy_us else 0.0)
+    launch_calls, copy_calls = _host_calls(prof, LAUNCH_CALLS), _host_calls(prof, COPY_CALLS)
     # the cumsums: CUDA scan kernels
     scans = [v for k, v in by_name.items() if "scan" in k.lower()]
     scan_us = sum(v[1] for v in scans)
@@ -147,6 +181,10 @@ def _report(name, prof, wall, walls, batch_frames, top):
         wall_ms_per_step=1e3 * wall / L,
         kernel_launches=len(kernels),
         launches_per_step=len(kernels) / L,
+        host_launch_calls=launch_calls,
+        host_launch_calls_per_step=sum(launch_calls.values()) / L,
+        host_copy_calls=copy_calls,
+        host_copy_calls_per_step=sum(copy_calls.values()) / L,
         device_kernel_ms=busy_us / 1e3,
         device_busy_share=covered / 1e6 / wall,
         device_idle_share=1.0 - covered / 1e6 / wall,
@@ -161,7 +199,9 @@ def _report(name, prof, wall, walls, batch_frames, top):
     print(f"{name}: {out['frames_per_s_unprofiled']:.3f} frames/s unprofiled (median of "
           f"{len(walls)}: {[round(B * L / w, 3) for w in walls]}), "
           f"{out['frames_per_s']:.3f} profiled, {out['wall_ms_per_step']:.3f} ms per step, "
-          f"{out['launches_per_step']:.1f} kernel launches per step, device kernels "
+          f"{out['launches_per_step']:.1f} device kernels per step, {out['host_launch_calls_per_step']:.2f} host "
+          f"launch calls per step {launch_calls}, {out['host_copy_calls_per_step']:.2f} copy and memset calls "
+          f"per step, device kernels "
           f"{out['device_kernel_ms']:.3f} ms, device busy {out['device_busy_share']:.4f}, "
           f"idle {out['device_idle_share']:.4f}", flush=True)
     for label, r in ours.items():
@@ -182,6 +222,8 @@ def main(argv=None) -> int:
     ap.add_argument("--backward", action="store_true",
                     help="also profile the backward of a training step at both geometries")
     ap.add_argument("--only", help="comma-separated words: profile only the points whose name has one")
+    ap.add_argument("--eager", action="store_true",
+                    help="also run each point op by op (disable_graphs()), in turns with the graphed runs")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_torch_port: no CUDA device", file=sys.stderr)
@@ -208,7 +250,7 @@ def main(argv=None) -> int:
         ("gated scannet B=2 L=16 240x320 block 4096", scannet, dict(block_size=4096)),
     ):
         if words is None or any(w in name for w in words):
-            res["points"].append(profile_point(name, *clip, dev, args.reps, **options))
+            res["points"] += profile_point(name, *clip, dev, args.reps, eager=args.eager, **options)
     if args.backward:
         for name, (colors, depths, K), L in (("golden B=2 L=10 120x160", chip_smoke._golden_clip(10), 10),
                                             ("scannet B=2 L=16 240x320", chip_smoke._scannet_clip(16), 16)):
