@@ -158,7 +158,26 @@ full-arena fusion) and ``PointFusion(assoc='projective', assoc_window=...)``
      memory still allocated after each run returns; each path's graphed
      run once more under ``torch.profiler``, where the port's kernels the
      device ran must equal the counts the replays added; and the memory
-     ``clear_graphs()`` frees.
+     ``clear_graphs()`` frees;
+ 33. the training step as one captured CUDA graph of forward, loss,
+     backward and update (``value_and_grad``, ``GradStep``: the JAX
+     package's ``jax.jit(jax.value_and_grad(...))``) against the same step
+     op by op, three times each way and once more under the profiler:
+     ``value_and_grad(slam_loss)`` at phase 8's inputs (golden, L=3) and at
+     the ScanNet geometry (cell 6, L=16), the loss bit-equal, the gradients
+     within the op-by-op runs' spread (``_spread``) and, golden, within
+     1e-3 of phase 8's CPU gradient; phase 9's 30-step calibration loop
+     through one graph whose learning rate is a device tensor, the scale
+     within 1e-4 of phase 9's; two ``sharded_train_step`` steps on
+     ``make_mesh()`` in this process; ``slam_sequence_compacted`` at phase
+     17's inputs, its forward one graph of the whole run (compactions
+     included) bit-equal to its eager loop, and its gradient recorded
+     inside the training graph, within the spread and within 1e-3 of phase
+     17's CPU gradient; each with the forward's launches (80/3 golden,
+     600/16 ScanNet: the backward launches neither kernel) equal to the
+     profiler's kernels, the capture's seconds, the peak memory, the
+     memory allocated after each call returns and what ``clear_graphs()``
+     frees.
 
 On the card ``slam_sequence``, the managed segments and ``ICPSLAM``'s
 steps run as captured CUDA graphs. The phases that record every kernel
@@ -166,6 +185,8 @@ call (2, 5, 12's selections, 14, 15, 16, 20, the ranks' runs and 30's
 in-process CLI) run their paths under ``disable_graphs()``: a captured step
 calls the wrappers only while it is captured, and a recorder's host read
 would break the capture; phase 32 holds the graphed runs to the eager ones.
+Phases 8-10 and 17 take their gradients op by op (``loss.backward()``), and
+phase 33 holds the training graph to them.
 A replay does not run the wrappers: each graph adds the launches it
 recorded at capture, and phase 32 holds those counts to the kernels the
 profiler saw on the device.
@@ -924,6 +945,7 @@ def grad_phase(dev):
     _check(err_p <= 1e-3 and err_d <= 1e-3, f"grad golden: card vs cpu {err_p}, {err_d}")
     _check_launches("grad golden forward", fwd, {"knn": (L - 1) * 40, "winner": L})
     _check_launches("grad golden backward", bwd, {"knn": 0, "winner": 0})
+    return g_c
 
 
 def calib_phase(dev, steps=30, L=3):
@@ -931,7 +953,7 @@ def calib_phase(dev, steps=30, L=3):
     clip at B=2, L=3 (its own frames), ``PointFusion()`` defaults, lr 0.05
     halved every ``steps / 3`` steps, the step normalized by |grad|, bias
     fixed; the gt trajectory is the clean depths' run. Returns one step's
-    launches.
+    launches and the scale found.
 
     Not the clip cycled to L=10: there the loss stops being smooth about 2%
     above the true scale, where the schedule's third step lands (1.140),
@@ -983,7 +1005,7 @@ def calib_phase(dev, steps=30, L=3):
          f"peak memory {torch.cuda.max_memory_allocated()} bytes")
     _check(abs(scale - TRUE_SCALE) <= 0.01, f"calib: scale {scale}, true {TRUE_SCALE}")
     _check(params.bias.item() == 0.0, "calib: the bias moved")
-    return {k: fwd[k] + bwd[k] for k in fwd}
+    return {k: fwd[k] + bwd[k] for k in fwd}, scale
 
 
 def backward_scannet_phase(dev):
@@ -1755,7 +1777,7 @@ def compacted_grad_phase(dev, voxel_size=GRAD_VOXEL):
     ``PointFusion()`` defaults, an arena of 2*H*W rows merged at GRAD_VOXEL
     every 2 frames) on the card against the CPU: within 1e-3 of the CPU's largest
     value, nonzero on every frame after the first. Returns the card's
-    forward launches."""
+    forward launches and the CPU's gradient."""
     from gradslam_tpu_torch import PointFusion
     from gradslam_tpu_torch.slam import slam_sequence_compacted
 
@@ -1793,7 +1815,7 @@ def compacted_grad_phase(dev, voxel_size=GRAD_VOXEL):
     n_comp = (L - 1 - first) // 2
     _check_launches("compacted grad forward", fwd, {"knn": (L - 1) * 40, "winner": L + n_comp})
     _check_launches("compacted grad backward", bwd, {"knn": 0, "winner": 0})
-    return fwd
+    return fwd, g_cpu
 
 
 # ---------------------------------------------------------------------------
@@ -3575,6 +3597,280 @@ def graph_phase(dev, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 33. the training step as a captured CUDA graph
+# ---------------------------------------------------------------------------
+
+GRAPHED_MODES = ("graphed warm-up", "graphed", "graphed again")
+
+
+def _flat(x):
+    """The tensors of a step's output (a tensor, a MapState, or tuples of
+    them), in order."""
+    from gradslam_tpu_torch.slam.stepgraph import _tensors
+
+    return _tensors(x)
+
+
+def _train_runs(name, run, eager=3):
+    """``run()`` (a training step or a run through a cached graph)
+    ``eager`` times op by op, then three times through a fresh graph (its
+    eager warm-up on the side stream, its capture and first replay, a
+    replay) and once more under the profiler: {mode: _timed's tuple}, the
+    profiled replay's launches."""
+    from gradslam_tpu_torch import clear_graphs
+
+    clear_graphs()
+    runs = {}
+    with _eager():
+        for i in range(eager):
+            runs[f"eager {i + 1}"] = _timed(run)
+    for mode in GRAPHED_MODES:
+        runs[mode] = _timed(run)
+    return runs, _profiled_launches(name, run)
+
+
+def _spread(name, runs, exact=1, warm_up_eager=True):
+    """The first ``exact`` outputs (the loss, a forward's whole result) of
+    every run bit-equal to the first eager run's; every other output of a
+    graphed replay against every op-by-op run (the eager runs and, when
+    ``warm_up_eager``, the graph's warm-up) within four times the largest
+    difference between two op-by-op runs (the backward's float atomics sum
+    in another order from run to run, and its results take a few discrete
+    values, so a spread from a few runs can fall short of the next run's),
+    or 1e-6 of the outputs' largest element where the op-by-op runs happened
+    to agree. Returns (the op-by-op spread, the largest graphed
+    difference)."""
+    outs = {mode: _flat(r[0]) for mode, r in runs.items()}
+    ref = outs["eager 1"]
+    for mode, out in outs.items():
+        for i in range(exact):
+            d = int((out[i] != ref[i]).sum())
+            _check(d == 0, f"{name}: {mode} output {i}: {d} elements differ from the eager run's")
+    if len(ref) == exact:
+        return 0.0, 0.0
+    eager = [o for m, o in outs.items() if m.startswith("eager") or (warm_up_eager and m == GRAPHED_MODES[0])]
+    graphed = [outs[m] for m in GRAPHED_MODES[1:]]
+    diff = lambda a, b: max(float((x - y).abs().max()) for x, y in zip(a[exact:], b[exact:]))
+    spread = max(diff(a, b) for i, a in enumerate(eager) for b in eager[i + 1:])
+    cross = max(diff(g, e) for g in graphed for e in eager)
+    scale = max(float(x.abs().max()) for x in ref[exact:])
+    _check(cross <= max(4 * spread, 1e-6 * scale),
+           f"{name}: graphed against eager {cross}, eager against eager {spread}, largest element {scale}")
+    return spread, cross
+
+
+def _train_line(runs):
+    return ", ".join(f"{mode} {r[1]:.3f} s launches {r[2]} peak {r[3]} allocated after {r[4]}"
+                     for mode, r in runs.items())
+
+
+def _grad_graph(cache):
+    """The one GradGraph or FrameGraph of a cache, and the bytes of its
+    static leaves and buffers."""
+    (graph,) = cache.graphs.values()
+    tensors = [a for a in getattr(graph, "args", []) if torch.is_tensor(a)]
+    params = getattr(graph, "params", None)
+    if params is not None:
+        tensors += list(params.parameters()) if isinstance(params, torch.nn.Module) else [params]
+    return graph, sum(t.untyped_storage().nbytes() for t in tensors)
+
+
+def train_graph_cell(dev, name, clip, cpu_grads=None):
+    """``value_and_grad(slam_loss)`` (``jax.jit(jax.value_and_grad(...))``)
+    on ``clip``, ``PointFusion()`` defaults, scale 1 and bias 0 against the
+    clip's poses: the loss bit-equal to eager, the gradient within the eager
+    spread (and within 1e-3 of ``cpu_grads``, phase 8's gate, when given),
+    a step's launches the forward's (the backward launches neither kernel),
+    the profiler's kernels the counters', capture seconds, memory kept and
+    freed. Returns the graphed step's launches."""
+    from gradslam_tpu_torch import PointFusion, value_and_grad
+    from gradslam_tpu_torch.parallel import DepthCalibParams, slam_loss
+
+    colors, depths, K = clip
+    B, L, H, W = colors.shape[:4]
+    opts = PointFusion(device=dev).opts
+    rgb, _, obs, Kt = _calib_inputs(colors, depths, K, dev)
+    gt = torch.from_numpy(_cycled_poses(L)).to(dev)
+    params = DepthCalibParams(device=dev)
+    vg = value_and_grad(slam_loss)
+    _check(vg.eager_reason(params, rgb) is None, f"train {name}: {vg.eager_reason(params, rgb)}")
+    runs, profiled = _train_runs(f"train {name}", lambda: vg(params, rgb, obs, Kt, gt, opts, L * H * W))
+    spread, cross = _spread(f"train {name}", runs)
+    graph, buffers = _grad_graph(vg.graphs)
+    capture_s, per_replay = graph.capture_s, graph.launches
+    del graph
+    freed = _cleared(f"train {name}", buffers)
+    loss, grads = runs["graphed again"][0]
+    grads = torch.stack(grads)
+    err = None if cpu_grads is None else _rel_err(grads, cpu_grads)
+    _log(f"train graph {name} B={B} L={L} {H}x{W}: loss {float(loss)!r}, d/d(scale, bias) {grads.tolist()}; "
+         f"{_train_line(runs)}; profiled {profiled} ({per_replay} a replay); capture {capture_s} s; "
+         f"|graphed - eager| {cross}, |eager - eager| {spread}, vs cpu {err}; clear_graphs() freed {freed[0]} "
+         f"allocated ({buffers} static buffers) and {freed[1]} reserved bytes")
+    _check(err is None or err <= 1e-3, f"train {name}: card vs cpu {err}")
+    expected = {"knn": (L - 1) * 40, "winner": L}
+    _check(all(r[2] == expected for r in runs.values()) and profiled == per_replay == expected,
+           f"train {name}: launches {[r[2] for r in runs.values()]}, profiled {profiled}, a replay {per_replay}")
+    return runs["graphed"][2]
+
+
+def train_graph_calib(dev, eager_scale, steps=30, L=3):
+    """Phase 9's loop through one captured step (``GradStep``, the twin of
+    ``examples/train_depth_calib.py``'s jitted step): the learning rate a
+    device tensor the graph reads, the step normalized by |grad|, bias
+    fixed; the scale found within 1e-4 of phase 9's eager loop's. Returns a
+    step's launches."""
+    from gradslam_tpu_torch import GradStep, PointFusion
+    from gradslam_tpu_torch.parallel import DepthCalibParams, slam_loss
+    from gradslam_tpu_torch.slam import slam_sequence
+
+    colors, depths, K = _golden_clip(L)
+    B, L, H, W = colors.shape[:4]
+    opts = PointFusion(device=dev).opts
+    rgb, clean, obs, Kt = _calib_inputs(colors, depths, K, dev)
+    with torch.no_grad():
+        _, gt = slam_sequence(rgb, clean, Kt, None, opts, L * H * W)
+
+    def sgd(params, lr):
+        loss = slam_loss(params, rgb, obs, Kt, gt, opts, L * H * W)
+        (grad,) = torch.autograd.grad(loss, [params.scale])
+        with torch.no_grad():
+            return params.scale - lr * grad / (grad.abs() + 1e-20), loss.detach()
+
+    step = GradStep(sgd)
+    params = DepthCalibParams(device=dev)
+    lr = torch.zeros((), device=dev)
+    secs, launches = [], []
+    for i in range(steps):
+        lr.fill_(0.05 * 0.5 ** (i / max(steps / 3, 1)))
+        (scale, loss), s, n, _, _ = _timed(lambda: step(params, lr))
+        with torch.no_grad():
+            params.scale.copy_(scale)
+        secs.append(s)
+        launches.append(n)
+    (graph,) = step.graphs.graphs.values()
+    scale = params.scale.item()
+    _log(f"train graph calib golden B={B} L={L} {H}x{W}, {steps} steps in {sum(secs):.3f} s: scale {scale!r} "
+         f"(eager loop {eager_scale!r}, |difference| {abs(scale - eager_scale)!r}); seconds a step: warm-up "
+         f"{secs[0]:.3f}, capture and replay {secs[1]:.3f}, replays median {float(np.median(secs[2:])):.4f}; "
+         f"capture {graph.capture_s} s; launches a step {launches[-1]}")
+    _check(abs(scale - eager_scale) <= 1e-4, f"train calib: scale {scale}, eager {eager_scale}")
+    _check(params.bias.item() == 0.0, "train calib: the bias moved")
+    expected = {"knn": (L - 1) * 40, "winner": L}
+    _check(all(n == expected for n in launches), f"train calib: launches {launches}")
+    return launches[-1]
+
+
+def train_graph_sharded(dev, L=3):
+    """Two ``sharded_train_step`` steps on ``make_mesh()`` in this process
+    (a 1x1 mesh that runs no collective), golden clip at L=3, phase 27's
+    learning rate: through one captured graph of loss, backward and SGD
+    update, the losses bit-equal to eager and the parameters within the
+    eager spread; the first step's parameters, kept, unchanged by the
+    second. Returns a step's launches."""
+    from gradslam_tpu_torch import PointFusion
+    from gradslam_tpu_torch.parallel import DepthCalibParams, make_mesh, sharded_train_step
+
+    colors, depths, K = _golden_clip(L)
+    B, L, H, W = colors.shape[:4]
+    rgb, _, obs, Kt = _calib_inputs(colors, depths, K, dev)
+    gt = torch.from_numpy(_cycled_poses(L)).to(dev)
+    step = sharded_train_step(make_mesh(device=dev), PointFusion(device=dev).opts, L * H * W, lr=TRAIN_LR)
+    params = DepthCalibParams(device=dev)
+    _check(step.train.eager_reason(params, rgb) is None, f"train sharded: {step.train.eager_reason(params, rgb)}")
+
+    def run():
+        p1, loss1 = step(params, rgb, obs, Kt, gt)
+        kept = [p1.scale.clone(), p1.bias.clone()]
+        p2, loss2 = step(p1, rgb, obs, Kt, gt)
+        _check(torch.equal(p1.scale, kept[0]) and torch.equal(p1.bias, kept[1]), "train sharded: step 2 moved p1")
+        return loss1, loss2, *(x.detach() for x in (p1.scale, p1.bias, p2.scale, p2.bias))
+
+    # the graph's warm-up call is the first step only: the second captures
+    runs, profiled = _train_runs("train sharded", run)
+    spread, cross = _spread("train sharded", runs, exact=2, warm_up_eager=False)
+    graph, _ = _grad_graph(step.train.graphs)
+    out = [float(x) for x in runs["graphed again"][0]]
+    _log(f"train graph sharded_train_step golden B={B} L={L} {H}x{W} lr {TRAIN_LR}, two steps: losses {out[:2]}, "
+         f"(scale, bias) {out[2:4]} then {out[4:]}; {_train_line(runs)}; profiled {profiled}; capture "
+         f"{graph.capture_s} s; |graphed - eager| {cross}, |eager - eager| {spread}")
+    expected = {"knn": 2 * (L - 1) * 40, "winner": 2 * L}
+    _check(all(r[2] == expected for r in runs.values()) and profiled == expected,
+           f"train sharded: launches {[r[2] for r in runs.values()]}, profiled {profiled}")
+    _check(out[2] != 1.0 and out[4] != out[2], f"train sharded: the scale did not move: {out}")
+    return {k: v // 2 for k, v in runs["graphed"][2].items()}
+
+
+def train_graph_compacted(dev, cpu_grad, voxel_size=GRAD_VOXEL):
+    """``slam_sequence_compacted`` at phase 17's inputs: its forward (one
+    graph of the whole run, every compaction in it) bit-equal to its eager
+    loop, and the gradient of phase 17's loss with respect to the depth
+    maps through ``value_and_grad`` (the compacted run recorded inside the
+    training graph) within the eager spread and within 1e-3 of phase 17's
+    CPU gradient. Returns the forward's launches."""
+    from gradslam_tpu_torch import PointFusion, value_and_grad
+    from gradslam_tpu_torch.slam import slam_sequence_compacted
+
+    colors, depths, K = _golden_clip(6)
+    B, L, H, W = colors.shape[:4]
+    opts = PointFusion(device=dev).opts
+    rgb, depth, Kt = (torch.from_numpy(x).to(dev) for x in (colors, depths, K))
+    kw = dict(segment_len=2, voxel_size=voxel_size)
+    from gradslam_tpu_torch.slam import stepgraph
+
+    runs, profiled = _train_runs("compacted forward", lambda: slam_sequence_compacted(
+        rgb, depth, Kt, None, opts, 2 * H * W, **kw))
+    _spread("compacted forward", runs, exact=4)
+    graph, buffers = _grad_graph(stepgraph._SEQUENCES)
+    capture_s = graph.capture_s
+    del graph
+    freed = _cleared("compacted forward", buffers)
+    peak = int(runs["graphed again"][0][2])
+    first = (L - 1) % 2 or min(2, L - 1)
+    expected = {"knn": (L - 1) * 40, "winner": L + (L - 1 - first) // 2}
+    _check(all(r[2] == expected for r in runs.values()) and profiled == expected,
+           f"compacted forward: launches {[r[2] for r in runs.values()]}, profiled {profiled}")
+    _log(f"train graph compacted forward golden B={B} L={L} {H}x{W} CAP={2 * H * W}: peak live {peak}; "
+         f"{_train_line(runs)}; profiled {profiled}; capture {capture_s} s; differing elements 0; clear_graphs() "
+         f"freed {freed[0]} allocated ({buffers} static buffers) and {freed[1]} reserved bytes")
+
+    def loss(d, rgb, K):
+        _, poses, _ = slam_sequence_compacted(rgb, d, K, None, opts, 2 * H * W, **kw)
+        return (poses[..., :3, 3] ** 2).sum()
+
+    vg = value_and_grad(loss)
+    runs, profiled = _train_runs("compacted grad", lambda: vg(depth, rgb, Kt))
+    spread, cross = _spread("compacted grad", runs)
+    graph, _ = _grad_graph(vg.graphs)
+    err = _rel_err(runs["graphed again"][0][1], cpu_grad)
+    _log(f"train graph compacted grad: {_train_line(runs)}; profiled {profiled}; capture {graph.capture_s} s; "
+         f"|graphed - eager| {cross}, |eager - eager| {spread}, vs cpu {err}")
+    _check(err <= 1e-3, f"compacted grad: card vs cpu {err}")
+    _check(all(r[2] == expected for r in runs.values()) and profiled == expected,
+           f"compacted grad: launches {[r[2] for r in runs.values()]}, profiled {profiled}")
+    return runs["graphed"][2]
+
+
+def train_graph_phase(dev, smi, cpu_grads, eager_scale, compacted_cpu_grad):
+    """Phase 33: the training step as a captured CUDA graph of forward,
+    loss, backward and update against the same step op by op. Returns the
+    graphed runs' launches by path."""
+    from gradslam_tpu_torch import clear_graphs
+
+    t0 = time.perf_counter()
+    out = {
+        "train graph golden": train_graph_cell(dev, "golden", _golden_clip(3), cpu_grads),
+        "train graph scannet": train_graph_cell(dev, "scannet", _scannet_clip(16)),
+        "train graph calib golden": train_graph_calib(dev, eager_scale),
+        "train graph sharded_train_step": train_graph_sharded(dev),
+        "compacted forward graph + grad": train_graph_compacted(dev, compacted_cpu_grad),
+    }
+    clear_graphs()
+    _log(f"train graph phase: {time.perf_counter() - t0:.1f} s on {smi}")
+    return out
+
+
 def _build_kernels():
     """Builds every kernel's source at once (one nvcc each) and loads them."""
     kernels = _kernels()
@@ -3613,8 +3909,8 @@ def main() -> int:
     by_path["projective scannet"] = projective_phase(
         dev, "scannet", colors, depths, K, 3 * H * W, 0.01, active_capacity=(3 * H * W) // 2
     )
-    grad_phase(dev)
-    by_path["calib golden"] = calib_phase(dev)
+    cpu_grads = grad_phase(dev)
+    by_path["calib golden"], eager_scale = calib_phase(dev)
     by_path["backward scannet"] = backward_scannet_phase(dev)
     trajectory_metrics_phase(dev, golden_poses)
     for name, clip in (("golden", _golden_clip(10)), ("scannet", _scannet_clip(16))):
@@ -3630,7 +3926,7 @@ def main() -> int:
     for name, t in timings.items():
         entries[name]["other_shapes"].update(t)
     by_path["managed scannet"] = managed_scannet_phase(dev)
-    by_path["compacted grad golden"] = compacted_grad_phase(dev)
+    by_path["compacted grad golden"], compacted_cpu_grad = compacted_grad_phase(dev)
     by_path["loop benchmark 96x128 ICPSLAM + closure"] = loop_benchmark_phase(dev)
     by_path["loop 480x640 ICPSLAM + closure"], timings = loop_full_width_phase(dev)
     entries["knn"]["other_shapes"].update(timings)
@@ -3654,6 +3950,7 @@ def main() -> int:
         shutil.rmtree(ckpt, ignore_errors=True)
     by_path.update(cli_phase(dev, smi))
     by_path.update(graph_phase(dev, smi))
+    by_path.update(train_graph_phase(dev, smi, cpu_grads, eager_scale, compacted_cpu_grad))
     for name, entry in entries.items():
         # launches: the ScanNet geometry's run of the path each kernel is
         # timed for; every path's count beside it

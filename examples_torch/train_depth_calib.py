@@ -8,7 +8,10 @@ depth-calibration parameters (scale/bias). Demonstrates that gradients
 flow from the recovered trajectory back to raw sensor inputs — the core
 property of differentiable SLAM. Neither hand-written kernel has a
 backward: autograd differentiates the gathers, solves and merges around
-the KNN and the fusion winners.
+the KNN and the fusion winners. On the card each step (forward, backward
+and update) is one captured CUDA graph, as its JAX twin jits the step;
+the learning rate is a device tensor the graph reads, so the schedule
+replays the same graph.
 
 Runs out of the box on the golden clip:
 
@@ -24,6 +27,7 @@ import argparse
 import numpy as np
 import torch
 
+from gradslam_tpu_torch import GradStep
 from gradslam_tpu_torch.parallel import DepthCalibParams
 from gradslam_tpu_torch.parallel.sharded import slam_loss
 from gradslam_tpu_torch.slam.icpslam import SLAMOptions, slam_sequence
@@ -64,26 +68,29 @@ def main():
             colors, depths_clean, K, None, opts, capacity
         )
 
-    params = DepthCalibParams(scale=args.init_scale, device=device)
-    # Bias is kept fixed: scale and bias are strongly coupled on a single
-    # clip, so only the scale is optimized
-    optimizer = torch.optim.SGD([params.scale], lr=args.lr)
-    for i in range(args.steps):
-        optimizer.param_groups[0]["lr"] = args.lr * (0.5 ** (i / max(args.steps / 3, 1)))
-        optimizer.zero_grad()
+    def sgd(params, lr):
         loss = slam_loss(
             params, colors, depths_observed, K, gt_poses, opts, capacity
         )
-        loss.backward()
+        (grad,) = torch.autograd.grad(loss, [params.scale])
         # normalized gradient step on the scale parameter (the raw
         # gradient magnitude depends on the tiny trajectory scale; the
-        # sign/direction is what matters for this 1-D demo)
-        grad = params.scale.grad
-        params.scale.grad = grad / (grad.abs() + 1e-20)
-        optimizer.step()
+        # sign/direction is what matters for this 1-D demo). Bias is kept
+        # fixed: scale and bias are strongly coupled on a single clip.
+        with torch.no_grad():
+            return params.scale - lr * grad / (grad.abs() + 1e-20), loss.detach()
+
+    step = GradStep(sgd)
+    params = DepthCalibParams(scale=args.init_scale, device=device)
+    lr = torch.zeros((), device=device)
+    for i in range(args.steps):
+        lr.fill_(args.lr * (0.5 ** (i / max(args.steps / 3, 1))))
+        scale, loss = step(params, lr)
+        with torch.no_grad():
+            params.scale.copy_(scale)
         if i % 5 == 0 or i == args.steps - 1:
             print(
-                f"step {i:3d}: loss {float(loss.detach()):.3e} "
+                f"step {i:3d}: loss {float(loss):.3e} "
                 f"scale {float(params.scale.detach()):.4f} "
                 f"bias {float(params.bias.detach()):+.5f}"
             )

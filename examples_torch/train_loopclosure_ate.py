@@ -97,6 +97,9 @@ def main():
         )
         return ate_rmse(refined, gt, align=False), w
 
+    # this loop stays op by op, unlike train_depth_calib.py's captured step:
+    # the closure's candidate selection and pose-graph solve have not yet
+    # been made capturable as a CUDA graph
     log_s = torch.zeros((), device=device, requires_grad=True)  # scale 1.0
     optimizer = torch.optim.SGD([log_s], lr=args.lr)
     for step in range(args.steps):

@@ -5,8 +5,10 @@ API and results as the JAX package, with its TPU kernel rewritten by hand
 in CUDA (``csrc/``). Entry points run on ``"cuda"`` unless given
 ``device="cpu"``; with no card they raise instead of falling back. On the
 card the frame step runs as a captured CUDA graph, the counterpart of
-``jax.jit``; ``disable_graphs()`` runs it op by op (``jax.disable_jit``)
-and ``clear_graphs()`` drops the captured steps (``jax.clear_caches``).
+``jax.jit``, and a training step as one captured graph of forward and
+backward (``value_and_grad``, ``GradStep``: ``jax.jit(jax.value_and_grad)``);
+``disable_graphs()`` runs them op by op (``jax.disable_jit``) and
+``clear_graphs()`` drops the captured steps (``jax.clear_caches``).
 
     >>> from gradslam_tpu_torch import RGBDImages, PointFusion
     >>> rgbdimages = RGBDImages(colors, depths, intrinsics)
@@ -14,7 +16,7 @@ and ``clear_graphs()`` drops the captured steps (``jax.clear_caches``).
 """
 
 from . import config, datasets, geometry, metrics, odometry, ops, parallel, slam, structures, utils, viz
-from .slam import ICPSLAM, PointFusion, clear_graphs, disable_graphs
+from .slam import ICPSLAM, GradStep, PointFusion, clear_graphs, disable_graphs, value_and_grad
 from .structures import MapState, Pointclouds, RGBDImages, init_map
 
 __version__ = "0.1.0"
@@ -39,5 +41,7 @@ __all__ = [
     "init_map",
     "disable_graphs",
     "clear_graphs",
+    "GradStep",
+    "value_and_grad",
     "__version__",
 ]

@@ -18,6 +18,13 @@ the KNN outputs are detached and the fusion winners are integers, so
 autograd differentiates the gathers, solves and merges around them, and,
 under a map axis, the owner-placed sums, whose gradient is the sum of the
 ranks' cotangents.
+
+On a CUDA device and a mesh that runs no collective (every axis 1, no
+process group: ``make_mesh()`` in one process) the training step is one
+captured CUDA graph of the loss, its backward and the SGD update, as the
+JAX package jits it (``slam/stepgraph.py``'s :class:`GradStep`); on a mesh
+that runs collectives it runs eagerly. :func:`slam_loss` stays a plain
+function.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import torch
 from torch import nn
 
 from ..slam.icpslam import SLAMOptions, slam_sequence
+from ..slam.stepgraph import GradStep
 from ..utils.device import resolve_device
 from .mesh import Mesh, shard_batch
 
@@ -128,21 +136,35 @@ def sharded_train_step(mesh: Mesh, opts: SLAMOptions, capacity: int, lr: float =
     through its shard and its own copy of the replicated part. Summed over
     the group that is ``map`` times the loss's gradient, so each rank
     differentiates its loss divided by ``map``.
+
+    On a CUDA device over a mesh that runs no collective the step (loss,
+    backward and update, ``lr`` baked in) is one captured CUDA graph a set
+    of input shapes; elsewhere it runs eagerly
+    (:meth:`~gradslam_tpu_torch.slam.stepgraph.GradStep.eager_reason`
+    says why). The returned parameters and loss are the caller's own.
     """
     m = mesh.shape["map"]
+    shard = mesh.map_shard(capacity) if m > 1 else None
 
-    def step(params: DepthCalibParams, rgb, depth, K, gt_poses):
+    def sgd(params: DepthCalibParams, rgb, depth, K, gt_poses):
         B = rgb.shape[0]
         rgb_l, depth_l, K_l, gt_l = shard_batch(mesh, (rgb, depth, K, gt_poses))
-        shard = mesh.map_shard(capacity) if m > 1 else None
         loss = slam_loss(params, rgb_l, depth_l, K_l, gt_l, opts, capacity, shard=shard) * (rgb_l.shape[0] / B)
         grads = torch.autograd.grad(loss / m, [params.scale, params.bias])
         g = mesh.all_reduce(torch.stack(grads))
         total = mesh.all_reduce(loss.detach().clone(), "data")
+        with torch.no_grad():
+            return params.scale - lr * g[0], params.bias - lr * g[1], total
+
+    train = GradStep(sgd, mesh=mesh, shard=shard)
+
+    def step(params: DepthCalibParams, rgb, depth, K, gt_poses):
+        scale, bias, total = train(params, rgb, depth, K, gt_poses)
         new = DepthCalibParams(device=params.scale.device)
         with torch.no_grad():
-            new.scale.copy_(params.scale - lr * g[0])
-            new.bias.copy_(params.bias - lr * g[1])
+            new.scale.copy_(scale)
+            new.bias.copy_(bias)
         return new, total
 
+    step.train = train  # its graphs and eager_reason
     return step

@@ -18,8 +18,11 @@ selection of the winner kernel.
 On a CUDA device :func:`slam_sequence_managed` runs each segment through the
 captured frame step of ``slam/stepgraph.py`` (the JAX package's jitted
 ``_scan_segment``): compaction changes the arena's contents, not its shapes,
-so every segment replays the same graph. :func:`slam_sequence_compacted`,
-whose use is its gradient, runs its frames eagerly.
+so every segment replays the same graph. :func:`slam_sequence_compacted`
+decides nothing on the host, so on a CUDA device its whole run, every
+compaction included, is one captured graph (the JAX package's one jitted
+scan of scans); under a gradient it runs op by op, and inside a training
+step's graph (``stepgraph.GradStep``) it is recorded there.
 """
 
 from __future__ import annotations
@@ -188,6 +191,17 @@ def slam_sequence_compacted(
     if policy not in _POLICIES:
         raise ValueError(f"policy must be 'voxel' or 'evict', got {policy!r}")
     _check_options(opts, poses_seq, "a compacting lifecycle")
+    static = (opts, capacity, segment_len, policy, voxel_size, min_ccount, keep_recent)
+    run = lambda *args: _compacted(*args, *static)
+    args = (rgb_seq, depth_seq, intrinsics, poses_seq)
+    if stepgraph.eager_reason(args) is not None:
+        return run(*args)
+    return stepgraph.run_graph(("slam_sequence_compacted", *static), run, args)
+
+
+def _compacted(rgb_seq, depth_seq, intrinsics, poses_seq, opts, capacity, segment_len, policy, voxel_size,
+               min_ccount, keep_recent):
+    """:func:`slam_sequence_compacted`'s run, op by op."""
     B, L, H, W, _ = rgb_seq.shape
     has_poses = poses_seq is not None
     state = slam_init_state(rgb_seq[:, 0], depth_seq[:, 0], intrinsics, opts, capacity,

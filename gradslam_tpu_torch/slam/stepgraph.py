@@ -1,5 +1,6 @@
-"""Captured frame steps: the port's counterpart of the JAX package's
-``jax.jit`` + ``lax.scan`` + ``donate_argnums``.
+"""Captured frame steps and training steps: the port's counterpart of the
+JAX package's ``jax.jit`` + ``lax.scan`` + ``donate_argnums``, and of
+``jax.jit(jax.value_and_grad(...))``.
 
 The JAX package never runs its frame step op by op: ``slam_sequence`` is one
 jitted ``lax.scan``, ``ICPSLAM.step`` jits its "map" and "slam" steps,
@@ -18,33 +19,54 @@ counterpart of ``donate_argnums``. What a caller gets back is always a copy
 (one copy of the state a step for ``step_state``, one at the end of a
 sequence), so a state kept from an earlier call is never overwritten, as a
 jitted function gives fresh outputs. :class:`FrameGraph` (``ICPSLAM.step``)
-keeps its outputs in the graph and hands out copies too.
+keeps its outputs in the graph and hands out copies too; it also serves
+``slam_sequence_compacted``, one graph of the whole run with its
+compactions (the JAX package's one jitted scan of scans).
+
+The JAX package never differentiates op by op either: its training steps
+are ``jax.jit`` of ``jax.value_and_grad`` and an update. :class:`GradStep`
+(and :func:`value_and_grad` on it) captures such a step whole as one
+:class:`GradGraph`: the forward over every frame (recorded op by op, as
+the frame step sees that it runs inside a capture with inputs that require
+grad), the loss, ``torch.autograd.grad`` with respect to static leaf
+tensors, and what the step does with the gradients (an SGD update). One
+graph, not a graphed frame step replayed per frame: a replay of a frame's
+graph would overwrite the tensors that the earlier frames saved for the
+backward. Its pool holds every frame's saved tensors while a replay runs.
 
 When the graph runs, and when the same function runs eagerly, op by op
 (:func:`eager_reason`; a rule, not a fallback):
 
   - graphed on a CUDA device, outside :func:`disable_graphs`, when no input
-    requires grad, on the whole arena (no ``shard``, or a group of one) and
-    outside another capture;
-  - eager on the CPU (no graphs there), for a gradient (autograd records its
-    own graph), on a map-sharded arena (gloo collectives cannot be captured)
-    and inside another capture (which then records the step itself).
+    requires grad (a training step: whatever requires grad), on the whole
+    arena (no ``shard``, or a group of one), on no mesh that runs a
+    collective, and outside another capture;
+  - eager on the CPU (no graphs there), for a gradient outside a training
+    step (autograd records its own graph), on a map-sharded arena or a mesh
+    that runs a collective (gloo collectives cannot be captured; NCCL's are
+    not yet) and inside another capture (which then records the step
+    itself).
 
 A capture or a replay that fails raises; nothing reruns the step eagerly.
 
 The first step of a new graph runs eagerly on a side stream: it builds the
 kernels, queries the winner kernel's occupancy, creates the solver's
-handles and warms the allocator, and advances the carry once. The next step
-captures (a capture runs no work) and replays. Each graph records its
-kernels' launch counts while it is captured and adds them to the wrappers'
-counters at every replay, so a run counts the launches of the eager run.
+handles and warms the allocator, and advances the carry once; a training
+step's warm-up runs its backward there too (autograd runs each backward op
+on its forward op's stream). The next step captures (a capture runs no
+work) and replays. Each graph records its kernels' launch counts while it
+is captured and adds them to the wrappers' counters at every replay, so a
+run counts the launches of the eager run (a backward launches neither
+kernel).
 
 The graphs are cached like JAX's compiled programs: module-level for
 :func:`slam_sequence <gradslam_tpu_torch.slam.slam_sequence>` and the
-managed segments, per ``ICPSLAM`` instance for ``step`` and
-``step_state``. Unlike a compiled program, a graph keeps device memory
+managed segments and ``slam_sequence_compacted``, per ``ICPSLAM``
+instance for ``step`` and ``step_state``, per :class:`GradStep` for a
+training step. Unlike a compiled program, a graph keeps device memory
 after its call returns: its static carry (an arena) and frame buffers, and
-its private pool (one step's intermediates). So each cache holds the
+its private pool (one step's intermediates; a training step's saved
+tensors of every frame). So each cache holds the
 :data:`MAX_GRAPHS` graphs used last and frees the others' memory when it
 drops them; :func:`clear_graphs` drops them all (``jax.clear_caches``).
 """
@@ -53,11 +75,13 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import copy
 import time
 import weakref
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from ..ops.knn import knn_kernel
 from ..ops.winner import winner_kernel
@@ -71,7 +95,11 @@ __all__ = [
     "GraphCache",
     "StepGraph",
     "FrameGraph",
+    "GradGraph",
+    "GradStep",
+    "value_and_grad",
     "sequence_graph",
+    "run_graph",
     "state_tensors",
 ]
 
@@ -96,16 +124,26 @@ def disable_graphs():
         _disabled -= 1
 
 
-def eager_reason(tensors, shard=None) -> Optional[str]:
+def eager_reason(tensors, shard=None, training=False, mesh=None) -> Optional[str]:
     """Why a step on these input ``tensors`` (None entries allowed) runs
-    eagerly, or None when it runs as a captured graph."""
+    eagerly, or None when it runs as a captured graph.
+
+    ``training``: the step is a :class:`GradStep`, whose graph holds its
+    own backward, so inputs that require grad are what it captures.
+    ``mesh``: the :class:`~gradslam_tpu_torch.parallel.Mesh` a step runs
+    over; it runs collectives when an axis is larger than 1 or a process
+    group is initialized (``Mesh.all_reduce`` then calls
+    ``torch.distributed``).
+    """
     if _disabled:
         return "disable_graphs()"
     tensors = [t for t in tensors if t is not None]
-    if any(t.requires_grad for t in tensors):
+    if not training and any(t.requires_grad for t in tensors):
         return "an input requires grad"
     if shard is not None and shard.n > 1:
         return "a map-sharded arena"
+    if mesh is not None and (mesh.shape["data"] > 1 or mesh.shape["map"] > 1 or dist.is_initialized()):
+        return f"a mesh's collectives (data={mesh.shape['data']} x map={mesh.shape['map']})"
     if tensors[0].device.type != "cuda":
         return f"a {tensors[0].device.type} device"
     if torch.cuda.is_current_stream_capturing():
@@ -138,7 +176,7 @@ class GraphCache:
 
 
 _CACHES = weakref.WeakSet()
-_SEQUENCES = GraphCache()  # slam_sequence's and the managed segments'
+_SEQUENCES = GraphCache()  # slam_sequence's, the managed segments' and slam_sequence_compacted's
 
 
 def clear_graphs():
@@ -256,7 +294,25 @@ def _clone(x):
     return tuple(parts) if type(x) is tuple else type(x)(*parts)
 
 
-class StepGraph:
+class _Graph:
+    """A captured function's seconds of capture and launches per replay."""
+
+    _run: _Captured
+
+    @property
+    def capture_s(self) -> Optional[float]:
+        """Seconds the capture took (None before it)."""
+        return self._run.capture_s
+
+    @property
+    def launches(self):
+        """Kernel launches per replay, ``{"knn": n, "winner": n}`` (None
+        before the capture)."""
+        n = self._run.launches
+        return None if n is None else dict(zip(("knn", "winner"), n))
+
+
+class StepGraph(_Graph):
     """``slam_step_state`` for one set of static arguments, over static
     frame buffers and a static carry, captured on a CUDA device.
 
@@ -283,18 +339,6 @@ class StepGraph:
         sh = None if shard is None else (id(shard.group), shard.rank, shard.n, shard.capacity)
         return (opts, _signature(state_tensors(state)), _signature((rgb, depth, intrinsics, gt_pose, labels)),
                 rgb.device, sh)
-
-    @property
-    def capture_s(self) -> Optional[float]:
-        """Seconds the capture took (None before it)."""
-        return self._run.capture_s
-
-    @property
-    def launches(self):
-        """Kernel launches per replay, ``{"knn": n, "winner": n}`` (None
-        before the capture)."""
-        n = self._run.launches
-        return None if n is None else dict(zip(("knn", "winner"), n))
 
     def _step(self):
         from .icpslam import slam_step_state
@@ -347,11 +391,18 @@ def sequence_graph(state, rgb_seq, depth_seq, intrinsics, poses_seq, opts, label
     return _SEQUENCES.get(StepGraph.key(*args), lambda: StepGraph(*args))
 
 
-class FrameGraph:
-    """A function of one frame's tensors (``ICPSLAM.step``'s "map" and
-    "slam" steps) captured over static copies of its arguments; each call
-    returns copies of its outputs, which the next replay overwrites in the
-    graph."""
+def run_graph(name, fn, args):
+    """``fn(*args)`` through the module-level cache's :class:`FrameGraph`
+    for ``name`` (the run's static arguments, hashable) and the arguments'
+    shapes: a whole run captured as one graph."""
+    return _SEQUENCES.get(FrameGraph.key(name, args), lambda: FrameGraph(fn, args))(*args)
+
+
+class FrameGraph(_Graph):
+    """A function of tensors (``ICPSLAM.step``'s "map" and "slam" steps, a
+    whole ``slam_sequence_compacted`` run; None entries allowed) captured
+    over static copies of its arguments; each call returns copies of its
+    outputs, which the next replay overwrites in the graph."""
 
     def __init__(self, fn, args):
         self.fn = fn
@@ -365,3 +416,92 @@ class FrameGraph:
     def __call__(self, *args):
         _assign(self.args, args)
         return _clone(self._run(lambda: self.fn(*self.args)))
+
+
+def _leaves(params):
+    """The tensors a training step differentiates: an ``nn.Module``'s
+    parameters, or ``params`` itself."""
+    return list(params.parameters()) if isinstance(params, torch.nn.Module) else [params]
+
+
+class GradGraph(_Graph):
+    """One training step, ``step(params, *args)``, captured whole over
+    static leaves (a copy of ``params``: a leaf tensor, or a copy of the
+    module) and static copies of the tensor arguments; the other arguments
+    are static values, part of the key. Each call copies ``params`` and the
+    tensors in and returns copies of the step's outputs."""
+
+    def __init__(self, step, params, args):
+        self.step = step
+        if isinstance(params, torch.nn.Module):
+            self.params = copy.deepcopy(params)
+        else:
+            self.params = _buffer(params).requires_grad_(True)
+        self.args = [_buffer(a) if torch.is_tensor(a) else a for a in args]
+        self._run = _Captured(_leaves(params)[0].device)
+
+    @staticmethod
+    def key(params, args):
+        """The static arguments that select a graph: the leaves' shapes and
+        dtypes, each argument's (a tensor's shape and dtype, any other
+        value itself) and the device."""
+        leaves = _leaves(params)
+        return (type(params), _signature(leaves),
+                tuple(_signature([a])[0] if torch.is_tensor(a) else a for a in args), leaves[0].device)
+
+    def __call__(self, params, *args):
+        tensors = [(d, s) for d, s in zip(self.args, args) if torch.is_tensor(d)]
+        with torch.no_grad():
+            _assign(_leaves(self.params), _leaves(params))
+            _assign([d for d, _ in tensors], [s for _, s in tensors])
+        return _clone(self._run(lambda: self.step(self.params, *self.args)))
+
+
+class GradStep:
+    """``step(params, *args)`` run as the JAX package runs a jitted
+    training step.
+
+    ``step`` differentiates ``params`` (a tensor, or an ``nn.Module`` whose
+    parameters are the leaves) with ``torch.autograd.grad``, never into
+    ``.grad``, and returns tensors (one, or tuples of them) that do not
+    require grad. ``args`` are tensors (None allowed) and static values
+    (hashable: options, capacities). On a CUDA device each set of static
+    arguments is one cached :class:`GradGraph` holding the forward, the
+    loss, the backward and what ``step`` does with the gradients; by
+    :func:`eager_reason`'s rules for a training step (the CPU,
+    :func:`disable_graphs`, a map shard or a ``mesh`` that runs
+    collectives, another capture) ``step`` runs eagerly instead. Either way
+    the caller gets fresh tensors.
+    """
+
+    def __init__(self, step, mesh=None, shard=None):
+        self.step, self.mesh, self.shard = step, mesh, shard
+        self.graphs = GraphCache()
+
+    def eager_reason(self, params, *args) -> Optional[str]:
+        """Why a call on these arguments runs eagerly (None: as a graph)."""
+        tensors = _leaves(params) + [a for a in args if torch.is_tensor(a)]
+        return eager_reason(tensors, self.shard, training=True, mesh=self.mesh)
+
+    def __call__(self, params, *args):
+        if self.eager_reason(params, *args) is not None:
+            if not isinstance(params, torch.nn.Module):
+                params = params.detach().requires_grad_(True)
+            return self.step(params, *args)
+        graph = self.graphs.get(GradGraph.key(params, args), lambda: GradGraph(self.step, params, args))
+        return graph(params, *args)
+
+
+def value_and_grad(fn) -> GradStep:
+    """``jax.jit(jax.value_and_grad(fn))``: ``fn(params, *args)`` returns a
+    0-d loss; the result, called with the same arguments, returns ``(loss,
+    grads)`` as fresh tensors, ``grads`` a tensor for a tensor ``params``
+    and a tuple in ``params.parameters()`` order for a module. On a CUDA
+    device one captured graph a set of static arguments (:class:`GradStep`)."""
+
+    def step(params, *args):
+        loss = fn(params, *args)
+        grads = torch.autograd.grad(loss, _leaves(params))
+        return loss.detach(), grads if isinstance(params, torch.nn.Module) else grads[0]
+
+    return GradStep(step)

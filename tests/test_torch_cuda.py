@@ -942,3 +942,128 @@ def test_clear_graphs_frees_a_graphs_buffers(cuda_device):
     held = torch.cuda.memory_allocated()
     clear_graphs()
     assert held - torch.cuda.memory_allocated() >= least
+
+
+# the captured training step (GradGraph, GradStep, value_and_grad)
+
+
+def _train_inputs(dev, L=3):
+    """The golden clip at L frames, the depth seen by a sensor of scale
+    1/1.1, the clip's poses as the target: the args of ``slam_loss`` after
+    the parameters."""
+    c, d, K = (torch.from_numpy(x).to(dev) for x in _cycled_clip(L))
+    gt = torch.from_numpy(np.load(DATA / "poses.npy").astype(np.float32)[:, [i % 3 for i in range(L)]]).to(dev)
+    return c, d / 1.1, K, gt, PointFusion(device=dev).opts, L * 120 * 160
+
+
+def _counted(fn):
+    before = (knn_kernel.launches, winner_kernel.launches)
+    out = fn()
+    return out, (knn_kernel.launches - before[0], winner_kernel.launches - before[1])
+
+
+def test_training_graph_equals_the_eager_step(cuda_device):
+    """value_and_grad(slam_loss) on the card: the step op by op three times,
+    then through its graph (warm-up, capture, replay): the loss bit-equal,
+    the gradients within four times the op-by-op spread (chip_smoke.py's
+    ``_spread`` says why) and within 1e-3 of the CPU,
+    a step's launches the forward's (the backward launches neither
+    kernel), one cached GradGraph."""
+    from gradslam_tpu_torch import value_and_grad
+    from gradslam_tpu_torch.parallel import DepthCalibParams, slam_loss
+    from gradslam_tpu_torch.slam.stepgraph import GradGraph
+
+    vg = value_and_grad(slam_loss)
+    params = DepthCalibParams(device=cuda_device)
+    args = _train_inputs(cuda_device)
+    assert vg.eager_reason(params, *args) is None
+    clear_graphs()
+    with disable_graphs():
+        eager = [_counted(lambda: vg(params, *args)) for _ in range(3)]
+    graphed = [_counted(lambda: vg(params, *args)) for _ in range(3)]
+    (graph,) = vg.graphs.graphs.values()
+    assert isinstance(graph, GradGraph) and graph.launches == {"knn": 80, "winner": 3}
+    assert all(n == (80, 3) for _, n in eager + graphed)
+    loss0 = eager[0][0][0]
+    assert all(torch.equal(out[0], loss0) for out, _ in eager + graphed)
+    grads = [torch.stack(out[1]) for out, _ in eager + graphed]
+    ops = grads[:4]  # the three eager steps and the graph's warm-up
+    spread = max(float((a - b).abs().max()) for i, a in enumerate(ops) for b in ops[i + 1:])
+    cross = max(float((g - e).abs().max()) for g in grads[4:] for e in ops)
+    assert cross <= max(4 * spread, 1e-6 * float(ops[0].abs().max())), (cross, spread)
+    cpu = value_and_grad(slam_loss)(DepthCalibParams(device="cpu"), *_train_inputs(torch.device("cpu")))[1]
+    cpu = torch.stack(cpu)
+    assert float((grads[-1].cpu() - cpu).abs().max()) <= 1e-3 * float(cpu.abs().max())
+    clear_graphs()
+
+
+def test_sharded_train_step_is_one_graph_on_the_card(cuda_device):
+    """sharded_train_step on make_mesh() in one process: two steps through
+    one cached graph, the losses bit-equal to the same steps op by op, the
+    parameters within 1e-5 relative of them; parameters kept from the first
+    step unchanged by the second."""
+    from gradslam_tpu_torch.parallel import DepthCalibParams, make_mesh, sharded_train_step
+
+    c, d, K, gt, opts, cap = _train_inputs(cuda_device)
+    step = sharded_train_step(make_mesh(device=cuda_device), opts, cap, lr=1e3)
+    clear_graphs()
+    runs = []
+    for graphed in (False, True, True):
+        p, out = DepthCalibParams(device=cuda_device), []
+        with contextlib.nullcontext() if graphed else disable_graphs():
+            for _ in range(2):
+                p, loss = step(p, c, d, K, gt)
+                out.append((loss, p.scale.detach().clone(), p.bias.detach().clone(), p))
+        runs.append(out)
+    assert len(step.train.graphs.graphs) == 1
+    for out in runs[1:]:
+        for (l0, s0, b0, _), (l1, s1, b1, p1) in zip(runs[0], out):
+            assert torch.equal(l0, l1)
+            assert float((s1 - s0).abs()) <= 1e-5 * abs(float(s0)) and float((b1 - b0).abs()) <= 1e-5
+            assert torch.equal(p1.scale.detach(), s1) and torch.equal(p1.bias.detach(), b1)
+    assert float(runs[0][0][1]) != 1.0
+    clear_graphs()
+
+
+def test_compacted_run_is_one_graph_on_the_card(cuda_device):
+    """slam_sequence_compacted without grad: one captured graph of the whole
+    run, compactions included, bit-equal to its eager loop in the map, the
+    poses and peak_live (a 0-d device tensor), with the same launches."""
+    from gradslam_tpu_torch.slam import slam_sequence_compacted, stepgraph
+
+    c, d, K = (torch.from_numpy(x).to(cuda_device) for x in _cycled_clip(6))
+    opts = PointFusion(device=cuda_device).opts
+    run = lambda: slam_sequence_compacted(c, d, K, None, opts, 2 * 120 * 160, segment_len=2, voxel_size=0.005)
+    clear_graphs()
+    with disable_graphs():
+        (m0, p0, peak0), l0 = _counted(run)
+    assert l0 == (5 * 40, 6 + 2)
+    for _ in range(3):
+        (m, p, peak), launches = _counted(run)
+        assert launches == l0 and peak.is_cuda and peak.dim() == 0 and torch.equal(peak, peak0)
+        assert torch.equal(m.data, m0.data) and torch.equal(m.num_points, m0.num_points) and torch.equal(p, p0)
+    (graph,) = stepgraph._SEQUENCES.graphs.values()
+    assert graph.capture_s is not None
+    clear_graphs()
+
+
+def test_a_host_read_in_the_training_step_raises(cuda_device):
+    """A training step that reads the host cannot be captured: the call
+    that captures raises (nothing reruns it eagerly)."""
+    from gradslam_tpu_torch import GradStep
+    from gradslam_tpu_torch.parallel import DepthCalibParams, slam_loss
+
+    args = _train_inputs(cuda_device, L=2)
+
+    def reading(params):
+        loss = slam_loss(params, *args)
+        (g,) = torch.autograd.grad(loss, [params.scale])
+        return g if float(loss) >= 0 else -g
+
+    step = GradStep(reading)
+    params = DepthCalibParams(device=cuda_device)
+    clear_graphs()
+    step(params)  # the warm-up, op by op
+    with pytest.raises(Exception):
+        step(params)
+    clear_graphs()

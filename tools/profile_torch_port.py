@@ -27,8 +27,12 @@ name contains one of its comma-separated words. With
 gradient of ``slam_loss`` (the depth-calibration loss through
 ``PointFusion()``'s run) on the golden clip and at the ScanNet geometry:
 the forward runs unprofiled, then ``loss.backward()`` is timed and
-profiled the same way. With ``--out`` it also writes the full table as JSON
-there.
+profiled the same way; and the whole training step,
+``value_and_grad(slam_loss)`` (forward, loss and backward: one captured
+CUDA graph on the card), graphed and op by op in turns, with the graph's
+capture seconds, the peak memory of its first two calls (warm-up, capture),
+the memory it keeps after they return and what ``clear_graphs()`` frees.
+With ``--out`` it also writes the full table as JSON there.
 """
 
 from __future__ import annotations
@@ -122,6 +126,71 @@ def profile_backward(name, colors, depths, K, gt, dev, reps=1, top=15):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     return _report(name, prof, wall, walls, (B, L), top)
+
+
+def profile_train_step(name, colors, depths, K, gt, dev, reps=1, top=15):
+    """A whole training step, ``value_and_grad(slam_loss)`` with respect to
+    the calibration parameters: op by op (``disable_graphs()``) and through
+    its captured graph, each warmed up, ``reps`` timed runs in turns and
+    one profiled run of each; returns the two reports, the graphed one with
+    the graph's capture seconds and memory."""
+    import contextlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from gradslam_tpu_torch import PointFusion, clear_graphs, disable_graphs, value_and_grad
+    from gradslam_tpu_torch.parallel import DepthCalibParams, slam_loss
+
+    B, L, H, W = colors.shape[:4]
+    opts = PointFusion(device=dev).opts
+    rgb, depth, Kt, gt = (torch.from_numpy(x).to(dev) for x in (colors, depths, K, gt))
+    params = DepthCalibParams(device=dev)
+    vg = value_and_grad(slam_loss)
+    step = lambda: vg(params, rgb, depth, Kt, gt, opts, L * H * W)
+    mode = lambda m: disable_graphs() if m == "eager" else contextlib.nullcontext()
+    clear_graphs()
+    with disable_graphs():
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    step()  # the graph's warm-up, op by op on its side stream
+    step()  # its capture and first replay
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    (graph,) = vg.graphs.graphs.values()
+    memory = dict(capture_s=graph.capture_s, first_two_calls_s=first_s,
+                  peak_bytes=torch.cuda.max_memory_allocated() - before,
+                  kept_bytes=torch.cuda.memory_allocated() - before)
+    del graph
+    walls = {m: [] for m in ("eager", "graphed")}
+    for _ in range(reps):
+        for m in walls:
+            with mode(m):
+                t0 = time.perf_counter()
+                step()
+                torch.cuda.synchronize()
+            walls[m].append(time.perf_counter() - t0)
+    out = []
+    for m in walls:
+        with mode(m), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        out.append(_report(f"train step {name} [{m}]", prof, wall, walls[m], (B, L), top))
+    torch.cuda.empty_cache()
+    held, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    clear_graphs()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    memory.update(cleared_allocated_bytes=held - torch.cuda.memory_allocated(),
+                  cleared_reserved_bytes=reserved - torch.cuda.memory_reserved())
+    out[1].update(memory)
+    print(f"  train step {name} graph: {memory}", flush=True)
+    return out
 
 
 def _host_calls(prof, names):
@@ -220,7 +289,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", help="write the results as JSON to this file")
     ap.add_argument("--reps", type=int, default=1, help="unprofiled timed runs per point")
     ap.add_argument("--backward", action="store_true",
-                    help="also profile the backward of a training step at both geometries")
+                    help="also profile the backward of a training step and the whole step, graphed and "
+                         "op by op, at both geometries")
     ap.add_argument("--only", help="comma-separated words: profile only the points whose name has one")
     ap.add_argument("--eager", action="store_true",
                     help="also run each point op by op (disable_graphs()), in turns with the graphed runs")
@@ -258,6 +328,8 @@ def main(argv=None) -> int:
                 f"backward {name}", colors, depths / chip_smoke.TRUE_SCALE, K, chip_smoke._cycled_poses(L),
                 dev, args.reps,
             ))
+            res["points"] += profile_train_step(
+                name, colors, depths / chip_smoke.TRUE_SCALE, K, chip_smoke._cycled_poses(L), dev, args.reps)
     if args.out:
         out = pathlib.Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
