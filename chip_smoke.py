@@ -177,14 +177,34 @@ full-arena fusion) and ``PointFusion(assoc='projective', assoc_window=...)``
      600/16 ScanNet: the backward launches neither kernel) equal to the
      profiler's kernels, the capture's seconds, the peak memory, the
      memory allocated after each call returns and what ``clear_graphs()``
-     frees.
+     frees;
+ 34. loop closure and the refiners as captured CUDA graphs
+     (``slam/stepgraph.graphed``: the JAX package's jitted closure,
+     ``fori_loop`` refiners and ``value_and_grad`` of the loop-closure
+     loss) against the same calls op by op, each run eagerly, then through
+     a fresh graph (warm-up, capture, replay) and, the paths with KNN
+     launches, once more under the profiler: cell 10's
+     ``close_loops_rgbd(detection='both')`` (phase
+     19's loop at 480x640) and ``ICPSLAM(loop_closure='both')`` twice on
+     its frames, phase 20a's managed run with closure (one graph per
+     boundary's length), ``pose_graph_refine`` at L=256, ``ba_refine``
+     ('dense' and 'pcg') at phase 21's smallest and largest problems, and
+     ``examples_torch/train_loopclosure_ate.py``'s step and 30-step loop
+     (one ``GradStep`` graph of closure, loss, backward and update): every
+     forward output bit-equal, the launches (82 a 'both' closure) equal to
+     the eager run's and to the profiler's kernels, the training loss
+     bit-equal, its update within the op-by-op spread and the recovered
+     scale within 1e-4 of the op-by-op loop's; ms, host launch calls,
+     capture seconds and the memory kept and freed logged.
 
-On the card ``slam_sequence``, the managed segments and ``ICPSLAM``'s
-steps run as captured CUDA graphs. The phases that record every kernel
-call (2, 5, 12's selections, 14, 15, 16, 20, the ranks' runs and 30's
-in-process CLI) run their paths under ``disable_graphs()``: a captured step
-calls the wrappers only while it is captured, and a recorder's host read
-would break the capture; phase 32 holds the graphed runs to the eager ones.
+On the card ``slam_sequence``, the managed segments, ``ICPSLAM``'s steps,
+loop closure and the refiners run as captured CUDA graphs. The phases that
+record every kernel call (2, 5, 12's selections, 14, 15, 16, 18-20, the
+ranks' runs and 30's in-process CLI) run their paths, or the closures they
+record, under ``disable_graphs()``: a captured step calls the wrappers only
+while it is captured, and a recorder's host read would break the capture;
+phases 32 and 34 hold the graphed runs to the eager ones; phase 21 times
+the refiners op by op.
 Phases 8-10 and 17 take their gradients op by op (``loss.backward()``), and
 phase 33 holds the training graph to them.
 A replay does not run the wrappers: each graph adds the launches it
@@ -1833,10 +1853,13 @@ BA_CPU_MAX_LANDMARKS = 10_000
 
 class _KnnTap:
     """Replaces ``knn`` in the odometry and the loop-closure module, and
-    ``close_loops`` / ``close_loops_batched`` by wrappers that, while a
-    closure runs, count its KNN calls (and their shapes) and keep the inputs
-    and outputs of the calls ``keep(n, src)`` selects; and
-    ``pose_graph_refine`` by one that times it on the host clock."""
+    ``close_loops`` / ``close_loops_batched`` / ``close_loops_rgbd`` by
+    wrappers that run the closure eagerly (``_eager``: the tap clones and
+    synchronizes, which a capture cannot hold; phase 34 holds the graphed
+    closures to the eager ones) and, while it runs, count its KNN calls (and
+    their shapes) and keep the inputs and outputs of the calls
+    ``keep(n, src)`` selects; and ``pose_graph_refine`` by one that times it
+    on the host clock. The frame steps around a closure stay graphed."""
 
     def __init__(self, keep=lambda n, src: True):
         from gradslam_tpu_torch.odometry import icputils
@@ -1859,7 +1882,8 @@ class _KnnTap:
             def wrapped(*args, **kwargs):
                 self.active += 1
                 try:
-                    return real(*args, **kwargs)
+                    with _eager():
+                        return real(*args, **kwargs)
                 finally:
                     self.active -= 1
             return wrapped
@@ -1874,7 +1898,8 @@ class _KnnTap:
 
         patches = [(icputils, "knn", knn), (loopclosure, "knn", knn), (loopclosure, "pose_graph_refine", refine),
                    (loopclosure, "close_loops", closing(loopclosure.close_loops)),
-                   (loopclosure, "close_loops_batched", closing(loopclosure.close_loops_batched))]
+                   (loopclosure, "close_loops_batched", closing(loopclosure.close_loops_batched)),
+                   (loopclosure, "close_loops_rgbd", closing(loopclosure.close_loops_rgbd))]
         self._restore = [(m, name, getattr(m, name)) for m, name, _ in patches]
         for m, name, fn in patches:
             setattr(m, name, fn)
@@ -2042,7 +2067,7 @@ def loop_full_width_phase(dev):
     the plain version, the kernel timed at B=56 and B=8, and two closures of
     the same trajectory bit-identical. Returns (launches, KNN timings)."""
     from gradslam_tpu_torch import ICPSLAM, RGBDImages
-    from gradslam_tpu_torch.slam import close_loops_rgbd
+    from gradslam_tpu_torch.slam import loopclosure
 
     H, W = E2E_HW
     t0 = time.perf_counter()
@@ -2067,14 +2092,14 @@ def loop_full_width_phase(dev):
         launches = _launches()
         rgb, depth, Kt = (x for x in (rgbd.rgb_image, rgbd.depth_image, rgbd.intrinsics))
         t0 = time.perf_counter()
-        again = close_loops_rgbd(rgb, depth, Kt, plain, detection="both", **lc_kw)
+        again = loopclosure.close_loops_rgbd(rgb, depth, Kt, plain, detection="both", **lc_kw)
         torch.cuda.synchronize()
         close_ms = 1e3 * (time.perf_counter() - t0)
-        twice = close_loops_rgbd(rgb, depth, Kt, plain, detection="both", **lc_kw)
+        twice = loopclosure.close_loops_rgbd(rgb, depth, Kt, plain, detection="both", **lc_kw)
     finally:
         tap.close()
     checked = tap.check("loop full width")
-    pose_closed = close_loops_rgbd(rgb, depth, Kt, plain, detection="pose", **lc_kw)
+    pose_closed = loopclosure.close_loops_rgbd(rgb, depth, Kt, plain, detection="pose", **lc_kw)
     (ate0, drift0), (ate1, drift1) = _loop_metrics(plain, gt), _loop_metrics(closed, gt)
     ate_p, drift_p = _loop_metrics(pose_closed, gt)
     L = LOOP_FRAMES
@@ -2186,7 +2211,7 @@ def files_closure(dev, colors, depths, K, gt, poses):
     82 KNN launches (batches of 4 and 2*2*7 = 28 at S=T=19,200), a dozen
     calls bit-equal. Returns (launches, KNN timing of the B=28 call)."""
     from gradslam_tpu_torch.metrics import ate_rmse
-    from gradslam_tpu_torch.slam import close_loops_rgbd
+    from gradslam_tpu_torch.slam import loopclosure
 
     keep = {0, 1, 20, 40, 41, 42, 43, 60, 80, 81}
     tap = _KnnTap(keep=lambda n, src: n in keep)
@@ -2194,7 +2219,8 @@ def files_closure(dev, colors, depths, K, gt, poses):
         torch.cuda.synchronize()
         _reset_launches()
         t0 = time.perf_counter()
-        closed = close_loops_rgbd(colors, depths, K, poses, detection="both", min_separation=3, max_candidates=2)
+        closed = loopclosure.close_loops_rgbd(colors, depths, K, poses, detection="both", min_separation=3,
+                                              max_candidates=2)
         torch.cuda.synchronize()
         ms = 1e3 * (time.perf_counter() - t0)
         launches = _launches()
@@ -2260,8 +2286,9 @@ def refinement_phase(dev, ba_iters=8, cg_iters=64):
     ``pose_graph_refine`` at L=256 against the CPU; and
     ``examples/train_loopclosure_ate.py``'s loss, the ATE after
     ``close_loops`` of range-scaled points: d loss / d log(scale) on the
-    card against the CPU within 1e-3 relative, float32. Returns the loss
-    run's launches."""
+    card against the CPU within 1e-3 relative, float32. The refiners run op
+    by op (``_eager``); phase 34 times them graphed. Returns the loss run's
+    launches."""
     from gradslam_tpu_torch.geometry import se3_exp
     from gradslam_tpu_torch.metrics import ate_rmse
     from gradslam_tpu_torch.parallel import PoseGraph, ba_refine, pose_graph_refine
@@ -2282,11 +2309,14 @@ def refinement_phase(dev, ba_iters=8, cg_iters=64):
                     ref = ba_refine(*cpu_args, num_iters=1, **kw)
                     err = max(float((a.cpu() - b).abs().max()) for a, b in zip(one, ref))
                     _check(err <= 1e-4, f"ba L={L} M={M} {solver}: card vs cpu {err}")
-                ms = _wall_ms(lambda: ba_refine(*card_args, num_iters=ba_iters, **kw), reps=1) / ba_iters
-                res[solver] = (ba_refine(*card_args, num_iters=ba_iters, **kw), err, ms)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = ba_refine(*card_args, num_iters=ba_iters, **kw)
+                torch.cuda.synchronize()
+                res[solver] = (out, err, 1e3 * (time.perf_counter() - t0) / ba_iters)
             gap = max(float((a - b).abs().max()) for a, b in zip(res["dense"][0], res["pcg"][0]))
             _check(gap <= 1e-4, f"ba L={L} M={M}: dense vs pcg on the card {gap}")
-            _log(f"ba L={L} M={M} N={M * BA_OBS_PER_LM}: ms per GN iteration (host clock, {ba_iters} iterations) dense "
+            _log(f"ba L={L} M={M} N={M * BA_OBS_PER_LM}: ms per GN iteration (host clock, one run of {ba_iters}) dense "
                  f"{res['dense'][2]:.3f} pcg {res['pcg'][2]:.3f} (cg {cg_iters}); one iteration card vs cpu dense "
                  f"{res['dense'][1]} pcg {res['pcg'][1]}; dense vs pcg after {ba_iters}: {gap}")
 
@@ -3309,11 +3339,16 @@ def _timed(fn):
             torch.cuda.memory_allocated() - before)
 
 
-def _profiled_launches(name, fn):
+# host calls that start device work: the runtime's and the driver API's kernel and graph launches
+HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchCooperativeKernel", "cuLaunchKernel", "cudaGraphLaunch",
+                 "cuGraphLaunch")
+
+
+def _profiled(name, fn):
     """``fn()`` under ``torch.profiler`` with the launch counts set to 0
     just before it: the counts that the replays added, held against the
     port's kernels that the device ran (by their CUDA functions' names).
-    Returns the counts."""
+    Returns (the counts, the host's launch calls)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -3323,12 +3358,19 @@ def _profiled_launches(name, fn):
         torch.cuda.synchronize()
     counted = _launches()
     ran = {"knn": 0, "winner": 0}
+    host = 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             ran["knn"] += "knn_cluster" in e.name
             ran["winner"] += "winner_grid" in e.name
+        else:
+            host += e.name.startswith(HOST_LAUNCHES)
     _check(ran == counted, f"{name}: the device ran {ran} port kernels, the counters say {counted}")
-    return counted
+    return counted, host
+
+
+def _profiled_launches(name, fn):
+    return _profiled(name, fn)[0]
 
 
 def _graph_bytes(graph):
@@ -3871,6 +3913,243 @@ def train_graph_phase(dev, smi, cpu_grads, eager_scale, compacted_cpu_grad):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 34. loop closure and the refiners as captured CUDA graphs
+# ---------------------------------------------------------------------------
+
+CLOSURE_BA_ITERS = 4
+CLOSURE_TRAIN_STEPS = 30
+
+
+def _closure_runs(name, run, eager=1, profiled=True):
+    """``run()`` ``eager`` times op by op, then three times through a fresh
+    graph (its eager warm-up on the side stream, its capture and first
+    replay, a replay) and, when ``profiled``, once more under the profiler
+    (it takes seconds for a graph of 10^5 kernels;
+    ``tools/profile_torch_port.py --closure`` profiles every path, op by op
+    too): ({mode: _timed's tuple}, {"graphed": (launches, host launch
+    calls)} or {})."""
+    from gradslam_tpu_torch import clear_graphs
+
+    clear_graphs()
+    runs = {}
+    with _eager():
+        for i in range(eager):
+            runs[f"eager {i + 1}"] = _timed(run)
+    for mode in GRAPHED_MODES:
+        runs[mode] = _timed(run)
+    return runs, {"graphed": _profiled(f"{name} graphed", run)} if profiled else {}
+
+
+def _closure_graphs():
+    """The closures' cached graphs: [(function name, graph)]."""
+    from gradslam_tpu_torch.slam import stepgraph
+
+    return [(key[0][0], g) for key, g in stepgraph._CLOSURES.graphs.items()]
+
+
+def _closure_line(runs, prof):
+    host = ", ".join(f"{m} {p[1]}" for m, p in prof.items()) or "not profiled"
+    return (", ".join(f"{mode} {1e3 * r[1]:.3f} ms launches {r[2]} peak {r[3]} allocated after {r[4]}"
+                      for mode, r in runs.items()) + f"; host launch calls (profiled): {host}")
+
+
+def closure_graph_path(name, run, expected, clear=True, profiled=True):
+    """One loop-closure or refinement path eager and graphed
+    (:func:`_closure_runs`): every output of every run bit-equal to the
+    eager run's, every run's launches (and, when ``profiled``, the
+    profiler's kernels) ``expected``; logs the ms, host launch calls,
+    capture seconds and memory kept and, with ``clear``, freed by
+    ``clear_graphs()``. Returns (the graphed run's launches, the eager
+    result)."""
+    t0 = time.perf_counter()
+    runs, prof = _closure_runs(name, run, profiled=profiled)
+    _spread(name, runs, exact=len(_flat(runs["eager 1"][0])))
+    graphs = _closure_graphs()
+    capture = {n: g.capture_s for n, g in graphs}
+    buffers = sum(a.untyped_storage().nbytes() for _, g in graphs for a in g.args if a is not None)
+    del graphs
+    freed = _cleared(name, buffers) if clear else None
+    _log(f"closure graph {name}: {_closure_line(runs, prof)}; capture {capture} s; static buffers {buffers} "
+         f"bytes; clear_graphs() freed {freed} (allocated, reserved) bytes; {time.perf_counter() - t0:.1f} s")
+    _check(all(r[2] == expected for r in runs.values()) and all(p[0] == expected for p in prof.values()),
+           f"{name}: launches {[r[2] for r in runs.values()]}, profiled {prof}, expected {expected}")
+    return runs["graphed"][2], runs["eager 1"][0]
+
+
+def closure_graph_cell10(dev):
+    """Cell 10 (phase 19's loop, 100 frames ray-cast at 480x640):
+    ``close_loops_rgbd(detection='both')`` of ``ICPSLAM``'s trajectory
+    eager and graphed, then ``ICPSLAM(loop_closure='both')`` twice on the
+    same frames (the first captures the frame step's graph and replays the
+    closure's, the second replays both), bit-equal to the eager closure
+    with the eager run's launches. Returns the launches by path."""
+    from gradslam_tpu_torch import ICPSLAM, RGBDImages
+    from gradslam_tpu_torch.slam import close_loops_rgbd, stepgraph
+
+    H, W = E2E_HW
+    colors, depths, K, _ = _render_loop_card(dev, LOOP_FRAMES, H, W, 0.55, 0.002)
+    rgbd = RGBDImages(colors, depths, K, device=dev)
+    _, plain = ICPSLAM(odom_targets="recent", device=dev)(rgbd)
+    rgb, depth, Kt = rgbd.rgb_image, rgbd.depth_image, rgbd.intrinsics
+    closure = {"knn": _closure_launches(2, 20), "winner": 0}
+    out = {}
+    out["closure graph cell 10 close_loops_rgbd"], ref = closure_graph_path(
+        f"cell 10 close_loops_rgbd both B=1 L={LOOP_FRAMES} {H}x{W}",
+        lambda: close_loops_rgbd(rgb, depth, Kt, plain, detection="both", **LOOP_GATES), closure, clear=False)
+    slam = ICPSLAM(odom_targets="recent", loop_closure="both", loop_closure_kwargs=dict(LOOP_GATES), device=dev)
+    runs = [_timed(lambda: slam(rgbd)[1]) for _ in range(2)]
+    diffs = [int((r[0] != ref).sum()) for r in runs]
+    n_frame, n_closure = len(stepgraph._SEQUENCES.graphs), len(stepgraph._CLOSURES.graphs)
+    freed = _cleared("cell 10 ICPSLAM + closure", 0)
+    _log(f"closure graph cell 10 ICPSLAM(loop_closure='both') twice: {[round(r[1], 3) for r in runs]} s, launches "
+         f"{[r[2] for r in runs]}, differing elements from the eager closure {diffs}; cached graphs: {n_frame} frame "
+         f"step, {n_closure} closure; clear_graphs() freed {freed} (allocated, reserved) bytes")
+    expected = {"knn": (LOOP_FRAMES - 1) * 40 + closure["knn"], "winner": 0}
+    _check(diffs == [0, 0] and all(r[2] == expected for r in runs),
+           f"cell 10 ICPSLAM + closure: {diffs} differing, launches {[r[2] for r in runs]}")
+    out["closure graph cell 10 ICPSLAM + closure"] = runs[-1][2]
+    return out
+
+
+def closure_graph_managed(dev):
+    """Phase 20a's managed run with closure (golden clip at 60x80, L=10,
+    segments of 3) eager and graphed: one closure graph per boundary's
+    length (4, 7 and 10 frames: three shapes against the cache's
+    ``MAX_GRAPHS``), a warm-up in the first graphed run, a capture in the
+    second and a replay in the third, each bit-equal to the eager run.
+    Returns the graphed run's launches."""
+    from gradslam_tpu_torch import PointFusion
+    from gradslam_tpu_torch.slam import slam_sequence_managed, stepgraph
+
+    colors, depths, K = _golden_clip(10)
+    colors, depths = colors[:, :, ::2, ::2].copy(), depths[:, :, ::2, ::2].copy()
+    K = K.copy()
+    K[:, :, :2] /= 2
+    B, L, H, W = colors.shape[:4]
+    rgb, depth, Kt = (torch.from_numpy(x).to(dev) for x in (colors, depths, K))
+    opts = PointFusion(odom="gradicp", numiters=8, device=dev).opts
+    lc = dict(min_separation=2, max_candidates=2, max_distance=0.5)
+
+    def run():
+        m, p = slam_sequence_managed(rgb, depth, Kt, None, opts, capacity=L * H * W, segment_len=3,
+                                     loop_closure="both", loop_closure_kwargs=lc)
+        return [m.data, m.num_points, p]
+
+    t0 = time.perf_counter()
+    runs, prof = _closure_runs("managed closure", run)
+    _spread("managed closure", runs, exact=3)
+    # the poses' length of each cached closure graph (its first tensor's shape)
+    lengths = sorted(key[1][0][0][1] for key in stepgraph._CLOSURES.graphs)
+    capture = [g.capture_s for _, g in _closure_graphs()]
+    _log(f"closure graph managed golden B={B} L={L} {H}x{W} segment 3: {_closure_line(runs, prof)}; closure graphs "
+         f"of lengths {lengths} (MAX_GRAPHS {stepgraph.MAX_GRAPHS}), capture {capture} s; the graphed warm-up run "
+         f"against eager {runs['graphed warm-up'][1] - runs['eager 1'][1]:+.3f} s")
+    _check(lengths == [4, 7, 10], f"managed closure: closure graphs of lengths {lengths}")
+    freed = _cleared("managed closure", 0)
+    _log(f"closure graph managed: clear_graphs() freed {freed} (allocated, reserved) bytes; "
+         f"{time.perf_counter() - t0:.1f} s")
+    _check(all(r[2] == runs["eager 1"][2] for r in runs.values()) and prof["graphed"][0] == runs["eager 1"][2],
+           f"managed closure: launches {[r[2] for r in runs.values()]}, profiled {prof}")
+    return runs["graphed"][2]
+
+
+def closure_graph_refiners(dev):
+    """``pose_graph_refine`` at L=256 (10 iterations) and ``ba_refine``
+    with both solvers at phase 21's smallest and largest problems
+    (``CLOSURE_BA_ITERS`` iterations), eager and graphed. Returns the
+    launches by path."""
+    from gradslam_tpu_torch.parallel import PoseGraph, ba_refine, pose_graph_refine
+
+    none = {"knn": 0, "winner": 0}
+    g = PoseGraph(*(x.to(dev) for x in _pose_graph_problem()[0]))
+    out = {f"closure graph pose_graph_refine L={g.poses.shape[0]}": closure_graph_path(
+        f"pose_graph_refine L={g.poses.shape[0]} E={g.edges.shape[0]} 10 iterations",
+        lambda: pose_graph_refine(g, num_iters=10), none, profiled=False)[0]}
+    for L, M in SHARDED_BA:
+        args = tuple(torch.from_numpy(x).to(dev) for x in _ba_problem(L, M))
+        for solver in ("dense", "pcg"):
+            kw = dict(num_iters=CLOSURE_BA_ITERS, max_obs_per_landmark=BA_OBS_PER_LM, solver=solver)
+            out[f"closure graph ba_refine {solver} L={L} M={M}"] = closure_graph_path(
+                f"ba_refine {solver} L={L} M={M} {CLOSURE_BA_ITERS} iterations", lambda: ba_refine(*args, **kw),
+                none, profiled=False)[0]
+    return out
+
+
+def _example(name):
+    """``examples_torch/<name>.py`` as a module (its ``main`` not run)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"{name}_torch", ROOT / "examples_torch" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def closure_graph_training(dev):
+    """``examples_torch/train_loopclosure_ate.py``'s step (``GradStep``: the
+    closure recorded inside one graph of forward, ATE loss, backward and
+    SGD update) at its defaults: one step twice op by op and through a
+    fresh graph, the loss and loop weights bit-equal, the new log-scale
+    within the op-by-op spread; then ``CLOSURE_TRAIN_STEPS`` steps op by op
+    and graphed, the recovered scale within 1e-4 relative of the op-by-op
+    loop's. Returns a step's launches."""
+    from gradslam_tpu_torch import GradStep
+
+    t0 = time.perf_counter()
+    ex = _example("train_loopclosure_ate")
+    problem = ex.make_problem(13, 256, 0.02, 1.15, 0, dev)
+    step = GradStep(ex.sgd)
+    lr = torch.full((), 0.4, device=dev)
+    log0 = torch.zeros((), device=dev)
+    runs, profiled = _train_runs("train_loopclosure_ate step", lambda: (lambda n, l, w: (l, w, n))(
+        *step(log0, lr, *problem)), eager=2)
+    spread, cross = _spread("train_loopclosure_ate step", runs, exact=2)
+    (graph,) = step.graphs.graphs.values()
+    capture_s = graph.capture_s
+    del graph
+
+    def loop():
+        log_s, losses = log0, []
+        for _ in range(CLOSURE_TRAIN_STEPS):
+            log_s, loss, _ = step(log_s, lr, *problem)
+            losses.append(loss)
+        return torch.exp(log_s), torch.stack(losses)
+
+    with _eager():
+        (eager_scale, eager_losses), eager_s, _, _, _ = _timed(loop)
+    (scale, losses), graphed_s, launches, _, _ = _timed(loop)
+    freed = _cleared("train_loopclosure_ate", 0)
+    rel = abs(float(scale) - float(eager_scale)) / float(eager_scale)
+    _log(f"closure graph train_loopclosure_ate L=13 N=256: one step {_train_line(runs)}; profiled {profiled}; capture "
+         f"{capture_s} s; |graphed - eager| {cross}, |eager - eager| {spread}; {CLOSURE_TRAIN_STEPS} steps eager "
+         f"{eager_s:.3f} s, graphed {graphed_s:.3f} s (launches {launches}): scale {float(scale)!r} against "
+         f"{float(eager_scale)!r} (relative {rel!r}), losses {float(losses[0])!r} -> {float(losses[-1])!r}; "
+         f"clear_graphs() freed {freed} (allocated, reserved) bytes; {time.perf_counter() - t0:.1f} s")
+    expected = {"knn": _closure_launches(1, 8), "winner": 0}
+    _check(all(r[2] == expected for r in runs.values()) and profiled == expected,
+           f"train_loopclosure_ate: launches {[r[2] for r in runs.values()]}, profiled {profiled}")
+    _check(rel <= 1e-4 and float(losses[-1]) < float(losses[0]),
+           f"train_loopclosure_ate: scale {float(scale)} against {float(eager_scale)}")
+    return runs["graphed"][2]
+
+
+def closure_graph_phase(dev, smi):
+    """Phase 34: loop closure and the refiners as captured CUDA graphs
+    against the same calls op by op. Returns the graphed runs' launches by
+    path."""
+    from gradslam_tpu_torch import clear_graphs
+
+    t0 = time.perf_counter()
+    out = closure_graph_cell10(dev)
+    out["closure graph managed golden"] = closure_graph_managed(dev)
+    out.update(closure_graph_refiners(dev))
+    out["closure graph train_loopclosure_ate step"] = closure_graph_training(dev)
+    clear_graphs()
+    _log(f"closure graph phase: {time.perf_counter() - t0:.1f} s on {smi}")
+    return out
+
+
 def _build_kernels():
     """Builds every kernel's source at once (one nvcc each) and loads them."""
     kernels = _kernels()
@@ -3931,7 +4210,8 @@ def main() -> int:
     by_path["loop 480x640 ICPSLAM + closure"], timings = loop_full_width_phase(dev)
     entries["knn"]["other_shapes"].update(timings)
     by_path["managed golden + closure"] = managed_closure_phase(dev)
-    by_path["train_loopclosure_ate loss"] = refinement_phase(dev)
+    with _eager():  # phase 21 times the refiners op by op, phase 34 graphed
+        by_path["train_loopclosure_ate loss"] = refinement_phase(dev)
     # phases 22, 24, 26 and 27 run in their own ranks while this process
     # runs phase 25; phase 23's four ranks run alone after them
     started = [_start_ranks("nccl", 1), _start_ranks("pair", 2)]
@@ -3951,6 +4231,7 @@ def main() -> int:
     by_path.update(cli_phase(dev, smi))
     by_path.update(graph_phase(dev, smi))
     by_path.update(train_graph_phase(dev, smi, cpu_grads, eager_scale, compacted_cpu_grad))
+    by_path.update(closure_graph_phase(dev, smi))
     for name, entry in entries.items():
         # launches: the ScanNet geometry's run of the path each kernel is
         # timed for; every path's count beside it

@@ -18,7 +18,9 @@ recovers the true scale:
 Candidate selection (top_k) and accept thresholds are piecewise-constant
 and act as locally-constant gates; the ICP measurements and the
 pose-graph solve carry the gradient (see
-tests/test_torch_loopclosure_grad.py).
+tests/test_torch_loopclosure_grad.py). On the card each step (the closure,
+the loss, the backward and the update) is one captured CUDA graph
+(``GradStep``), as its JAX twin jits ``value_and_grad``.
 
     python examples_torch/train_loopclosure_ate.py [--steps 25]
 """
@@ -32,6 +34,7 @@ import argparse
 import numpy as np
 import torch
 
+from gradslam_tpu_torch import GradStep
 from gradslam_tpu_torch.geometry import se3_exp
 from gradslam_tpu_torch.metrics import ate_rmse
 from gradslam_tpu_torch.slam import close_loops
@@ -50,11 +53,12 @@ parser.add_argument("--cpu", action="store_true",
 parser.add_argument("--device", default="cuda", help="torch device (cuda or cpu)")
 
 
-def main():
-    args = parser.parse_args()
-    device = resolve_device("cpu" if args.cpu else args.device)
-    rng = np.random.RandomState(args.seed)
-    L, N = args.frames, args.points
+def make_problem(frames, points, drift, true_scale, seed, device):
+    """The drifted loop: (drifted poses (L, 4, 4), observed points (L, N, 3),
+    normals (L, N, 3), valid (L, N), ground-truth poses (L, 4, 4)) on
+    ``device``."""
+    rng = np.random.RandomState(seed)
+    L, N = frames, points
 
     # world cloud + circular trajectory closing on itself (as in
     # examples_torch/loop_closure.py)
@@ -77,45 +81,57 @@ def main():
     drifted = [true_poses[0]]
     for k in range(1, L):
         inc = np.linalg.inv(true_poses[k - 1]) @ true_poses[k]
-        xi = rng.randn(6).astype(np.float32) * args.drift
+        xi = rng.randn(6).astype(np.float32) * drift
         drifted.append(drifted[-1] @ (se3_exp(torch.from_numpy(xi)).numpy() @ inc))
 
     on = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)
-    drifted = on(np.stack(drifted))
-    gt = on(true_poses)
     valid = torch.ones((L, N), dtype=torch.bool, device=device)
-    nrm_t = on(np.stack(nrms))
     # the "sensor" reports ranges divided by the unknown true scale
-    pts_observed = on(np.stack(pts)) / args.true_scale
+    return on(np.stack(drifted)), on(np.stack(pts)) / true_scale, on(np.stack(nrms)), valid, on(true_poses)
 
-    def loss_fn(log_s):
-        s = torch.exp(log_s)
-        refined, _, w = close_loops(
-            drifted, s * pts_observed, nrm_t, valid,
-            max_candidates=8, min_separation=max(3, L // 3), max_distance=0.3,
-            icp_numiters=8, refine_iters=5,
-        )
-        return ate_rmse(refined, gt, align=False), w
 
-    # this loop stays op by op, unlike train_depth_calib.py's captured step:
-    # the closure's candidate selection and pose-graph solve have not yet
-    # been made capturable as a CUDA graph
-    log_s = torch.zeros((), device=device, requires_grad=True)  # scale 1.0
-    optimizer = torch.optim.SGD([log_s], lr=args.lr)
-    for step in range(args.steps):
-        optimizer.zero_grad()
-        loss, w = loss_fn(log_s)
-        loss.backward()
-        optimizer.step()
-        if step % 5 == 0 or step == args.steps - 1:
+def loss_fn(log_s, drifted, pts_observed, normals, valid, gt):
+    """The post-closure ATE of the trajectory closed on ``exp(log_s)``
+    times the observed points: (loss, loop weights)."""
+    L = drifted.shape[0]
+    refined, _, w = close_loops(
+        drifted, torch.exp(log_s) * pts_observed, normals, valid,
+        max_candidates=8, min_separation=max(3, L // 3), max_distance=0.3,
+        icp_numiters=8, refine_iters=5,
+    )
+    return ate_rmse(refined, gt, align=False), w
+
+
+def sgd(log_s, lr, *problem):
+    """One training step, the twin of the JAX example's jitted
+    ``value_and_grad`` and its update: (new log_s, loss, loop weights)."""
+    loss, w = loss_fn(log_s, *problem)
+    (g,) = torch.autograd.grad(loss, [log_s])
+    with torch.no_grad():
+        return log_s - lr * g, loss.detach(), w
+
+
+def main():
+    args = parser.parse_args()
+    device = resolve_device("cpu" if args.cpu else args.device)
+    problem = make_problem(args.frames, args.points, args.drift, args.true_scale, args.seed, device)
+
+    # on the card the step (closure, loss, backward and update) is one
+    # captured CUDA graph; the learning rate is a device tensor it reads
+    step = GradStep(sgd)
+    log_s = torch.zeros((), device=device)  # scale 1.0
+    lr = torch.full((), args.lr, device=device)
+    for i in range(args.steps):
+        log_s, loss, w = step(log_s, lr, *problem)
+        if i % 5 == 0 or i == args.steps - 1:
             print(
-                f"step {step:3d}: post-closure ATE {float(loss.detach()):.5f} m, "
-                f"scale {float(torch.exp(log_s.detach())):.4f} "
+                f"step {i:3d}: post-closure ATE {float(loss):.5f} m, "
+                f"scale {float(torch.exp(log_s)):.4f} "
                 f"(true {args.true_scale}), loop edges "
                 f"{int((w > 0).sum())}"
             )
 
-    final = float(torch.exp(log_s.detach()))
+    final = float(torch.exp(log_s))
     print(
         f"recovered range scale {final:.4f} (true {args.true_scale}); "
         f"rel err {abs(final - args.true_scale) / args.true_scale:.3%}"

@@ -29,6 +29,7 @@ reduced system.
 
 from __future__ import annotations
 
+import contextlib
 from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -242,13 +243,50 @@ def _assemble_normal_equations(L, segs, r, J_i, J_j):
     return H, b
 
 
-def _solve(A, b):
-    """``A^-1 b`` without the singularity check (which waits on the host)."""
-    return torch.linalg.solve_ex(A, b, check_errors=False)[0]
+@contextlib.contextmanager
+def _cusolver(A):
+    """The route of a solve on the card: cuSOLVER and cuBLAS, never MAGMA.
+
+    By default ``torch.linalg`` factors a batch of large matrices (the
+    (B, 6L, 6L) pose graphs of a batch of trajectories) with MAGMA, which
+    cannot be captured in a CUDA graph. The same route runs eagerly and
+    captured, so the two give the same bits. No effect on the CPU."""
+    if not A.is_cuda:
+        yield
+        return
+    prev = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.preferred_linalg_library(prev)
+
+
+class _Solve(torch.autograd.Function):
+    """``A^-1 b`` without the singularity check (which waits on the host),
+    forward and backward (``A^-T g``) on :func:`_cusolver`'s route."""
+
+    @staticmethod
+    def forward(ctx, A, b):
+        with _cusolver(A):
+            x = torch.linalg.solve_ex(A, b, check_errors=False)[0]
+        ctx.save_for_backward(A, x)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        A, x = ctx.saved_tensors
+        with _cusolver(A):
+            gb = torch.linalg.solve_ex(A.mT, g, check_errors=False)[0]
+        return -gb @ x.mT if ctx.needs_input_grad[0] else None, gb
+
+
+_solve = _Solve.apply
 
 
 def _inv(A):
-    return torch.linalg.inv_ex(A, check_errors=False)[0]
+    with _cusolver(A):
+        return torch.linalg.inv_ex(A, check_errors=False)[0]
 
 
 def _block_diag(blocks: torch.Tensor) -> torch.Tensor:
@@ -296,9 +334,19 @@ def pose_graph_refine(
 
     Returns refined (L, 4, 4) poses, pose 0 gauge-anchored; a graph with a
     leading batch axis (poses (B, L, 4, 4), edges (B, E, 2), ...) gives
-    (B, L, 4, 4), every graph solved in the same batched solve.
+    (B, L, 4, 4), every graph solved in the same batched solve. On a CUDA
+    device the iterations are one captured graph per (shapes, dtype,
+    ``num_iters``, ``damping``, ``anchor_weight``): the JAX package's
+    ``jax.jit`` of its ``fori_loop`` (``slam/stepgraph.graphed``).
     """
-    g, single = _batched(graph)
+    from ..slam.stepgraph import graphed
+
+    return graphed("pose_graph_refine", _pose_graph_refine, tuple(graph), num_iters=num_iters, damping=damping,
+                   anchor_weight=anchor_weight)
+
+
+def _pose_graph_refine(poses, edges, measurements, weights, num_iters, damping, anchor_weight):
+    g, single = _batched(PoseGraph(poses, edges, measurements, weights))
     poses = _pose_graph_iterations(g, g.poses, num_iters, damping, anchor_weight)
     return poses[0] if single else poses
 
@@ -662,15 +710,24 @@ def ba_refine(
         cg_iters: CG iterations per Gauss-Newton step (pcg only).
 
     Returns:
-        (refined_poses (L, 4, 4), refined_landmarks (M, 3)).
+        (refined_poses (L, 4, 4), refined_landmarks (M, 3)). On a CUDA
+        device the iterations are one captured graph per (shapes, dtypes,
+        ``num_iters``, ``damping``, ``anchor_weight``, the pair bound,
+        ``solver``, ``cg_iters``, the true count of observations of one
+        landmark), as the JAX package jits ``_ba_refine_impl``.
     """
     if solver not in ("dense", "pcg"):
         raise ValueError(f"solver must be 'dense' or 'pcg', got {solver!r}")
+    from ..slam.stepgraph import graphed
+
+    # the host reads the observation counts outside the graph, as the JAX
+    # package's _validate_k_max does outside its jit; the count is static
     true_max = _obs_per_landmark_max(obs_lm) if solver == "dense" else 0
     _validate_k_max(obs_lm, max_obs_per_landmark, solver, true_max)
     k_max = poses.shape[0] if max_obs_per_landmark is None else max_obs_per_landmark
-    return _ba_refine_impl(poses, landmarks, obs_pose, obs_lm, obs_pts, weights, num_iters, damping,
-                           anchor_weight, k_max, solver, cg_iters, true_max)
+    return graphed("ba_refine", _ba_refine_impl, (poses, landmarks, obs_pose, obs_lm, obs_pts, weights),
+                   num_iters=num_iters, damping=damping, anchor_weight=anchor_weight, k_max=k_max, solver=solver,
+                   cg_iters=cg_iters, true_max=true_max)
 
 
 def partition_observations_by_landmark(obs_pose, obs_lm, obs_pts, weights, n):

@@ -223,6 +223,17 @@ def _compacted(rgb_seq, depth_seq, intrinsics, poses_seq, opts, capacity, segmen
     return state.map_state, torch.stack(poses, dim=1), torch.stack(peaks).max()
 
 
+def _close_so_far(poses, pts, nrm, val, detection, **kwargs):
+    """The managed run's closure of the frames so far: their descriptors
+    (for appearance detection) and ``close_loops_batched``; returns (refined
+    poses, loop weights)."""
+    from .loopclosure import close_loops_batched, keyframe_descriptors_invariant
+
+    descs = keyframe_descriptors_invariant(pts, nrm, val) if detection in ("appearance", "both") else None
+    refined, _, w = close_loops_batched(poses, pts, nrm, val, detection=detection, descriptors=descs, **kwargs)
+    return refined, w
+
+
 def slam_sequence_managed(
     rgb_seq: torch.Tensor,
     depth_seq: torch.Tensor,
@@ -289,21 +300,20 @@ def slam_sequence_managed(
     lc_kwargs = dict(loop_closure_kwargs or {})
     lc_dsratio = lc_kwargs.pop("dsratio", opts.dsratio or 4)
     if loop_closure is not None:
-        from .loopclosure import close_loops_batched, frame_clouds_from_rgbd, keyframe_descriptors_invariant
+        from .loopclosure import frame_clouds_from_rgbd
 
         # pose-independent camera-frame clouds of the whole sequence, once
         lc_pts, lc_nrm, lc_val, _, _ = frame_clouds_from_rgbd(depth_seq, intrinsics, lc_dsratio)
 
     def close_loops_so_far(poses_btl):
-        """Every batch entry's trajectory so far closed in one batched call:
-        (refined poses, whether any loop edge was accepted)."""
+        """Every batch entry's trajectory so far closed in one batched call,
+        on a CUDA device one captured graph a length (``stepgraph.graphed``):
+        (refined poses, whether any loop edge was accepted, read on the host
+        after the call)."""
         t_now = poses_btl.shape[1]
-        pts, nrm, val = lc_pts[:, :t_now], lc_nrm[:, :t_now], lc_val[:, :t_now]
-        descs = None
-        if loop_closure in ("appearance", "both"):
-            descs = keyframe_descriptors_invariant(pts, nrm, val)
-        refined, _, w = close_loops_batched(poses_btl, pts, nrm, val, detection=loop_closure, descriptors=descs,
-                                            **lc_kwargs)
+        refined, w = stepgraph.graphed(
+            "slam_sequence_managed closure", _close_so_far,
+            (poses_btl, lc_pts[:, :t_now], lc_nrm[:, :t_now], lc_val[:, :t_now]), detection=loop_closure, **lc_kwargs)
         return refined, bool((w > 0).any())
 
     if resume_from is not None:

@@ -14,6 +14,18 @@ fixed and nothing waits on the host.
 Candidates with equal scores are taken in ascending index order (a stable
 descending sort), so the invalid slots, which still enter the ICP batch
 and the pose graph with weight 0, are the same pairs on every device.
+
+On a CUDA device the functions that the JAX package jits run as captured
+CUDA graphs (``slam/stepgraph.graphed``, one per set of static arguments:
+the shapes, dtypes and every non-tensor argument, float gates included):
+:func:`close_loops_batched` (so :func:`close_loops`) and
+:func:`close_loops_rgbd` each as one graph of detection, verification and
+the pose graph, and :func:`detect_loop_closures`,
+:func:`detect_loop_closures_descriptor`, :func:`keyframe_descriptors` and
+:func:`keyframe_descriptors_invariant` each when called on its own.
+:func:`verify_loop_closures` runs eagerly on its own (the JAX package does
+not jit it at top level). Constants are made on the device by a fill, never
+copied from the host: a capture refuses a copy from pageable memory.
 """
 
 from __future__ import annotations
@@ -27,6 +39,7 @@ from ..geometry.projutils import matmul_small
 from ..odometry.icputils import point_to_plane_gradICP
 from ..ops.knn import knn
 from ..parallel.pose_refine import PoseGraph, pose_graph_refine
+from .stepgraph import graphed
 
 __all__ = [
     "LoopCandidates",
@@ -61,6 +74,12 @@ def _rotation_angle(R: torch.Tensor) -> torch.Tensor:
     """Rotation angle of (..., 3, 3) matrices (radians)."""
     tr = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
     return torch.arccos(torch.clamp((tr - 1.0) / 2.0, -1.0, 1.0))
+
+
+def _full(x: float, dtype, device) -> torch.Tensor:
+    """A 0-d tensor made on ``device`` by a fill (``torch.tensor(x,
+    device=...)`` copies from the host, which a capture refuses)."""
+    return torch.full((), x, dtype=dtype, device=device)
 
 
 def _top_k(score: torch.Tensor, k: int):
@@ -103,6 +122,11 @@ def detect_loop_closures(
     Returns:
         LoopCandidates with (..., K, 2) index pairs, i < j.
     """
+    return graphed("detect_loop_closures", _detect_loop_closures, (poses,), max_candidates=max_candidates,
+                   min_separation=min_separation, max_distance=max_distance, max_angle=max_angle)
+
+
+def _detect_loop_closures(poses, max_candidates, min_separation, max_distance, max_angle):
     L = poses.shape[-3]
     t = poses[..., :3, 3]
     diff = t[..., :, None, :] - t[..., None, :, :]
@@ -139,6 +163,10 @@ def keyframe_descriptors(
     Returns:
         (..., L, gh*gw*5) descriptors.
     """
+    return graphed("keyframe_descriptors", _keyframe_descriptors, (depth, normals, valid), grid=tuple(grid))
+
+
+def _keyframe_descriptors(depth, normals, valid, grid):
     lead = depth.shape[:-2]
     H, W = depth.shape[-2:]
     depth = depth.reshape(-1, H, W)
@@ -159,7 +187,7 @@ def keyframe_descriptors(
     mean_n = (n * vf[..., None]).sum((2, 4)) / denom[..., None]
     # the reference's division by the constant cell size is a multiply by
     # its reciprocal
-    frac = cnt * torch.tensor(1.0 / cell, dtype=depth.dtype, device=depth.device)
+    frac = cnt * _full(1.0 / cell, depth.dtype, depth.device)
 
     # per-frame median valid depth (masked median via sort)
     flat_d = depth.reshape(L, -1)
@@ -182,7 +210,7 @@ def _linspace01(n: int, dtype, device) -> torch.Tensor:
     selects, so the last bit matters)."""
     if n == 1:
         return torch.zeros(1, dtype=dtype, device=device)
-    step = torch.arange(n - 1, dtype=dtype, device=device) * torch.tensor(1.0 / (n - 1), dtype=dtype, device=device)
+    step = torch.arange(n - 1, dtype=dtype, device=device) * _full(1.0 / (n - 1), dtype, device)
     return torch.cat([step, torch.ones(1, dtype=dtype, device=device)])
 
 
@@ -190,7 +218,7 @@ def _histogram(x, w, lo, hi, bins, eps):
     """Normalized weighted histograms of (..., P) values over [lo, hi) in
     ``bins`` bins (out-of-range values fall in the end bins), summed as a
     one-hot product, so the order of additions is fixed."""
-    scale = torch.tensor(1.0 / (hi - lo), dtype=x.dtype, device=x.device)
+    scale = _full(1.0 / (hi - lo), x.dtype, x.device)
     ix = torch.clamp(((x - lo) * scale * bins).to(torch.int32), 0, bins - 1)
     onehot = ix[..., None] == torch.arange(bins, dtype=torch.int32, device=x.device)
     h = (onehot.to(x.dtype) * w[..., None]).sum(-2)
@@ -225,6 +253,11 @@ def keyframe_descriptors_invariant(
     Returns:
         (..., L, 4*bins) descriptors, each histogram summing to 1.
     """
+    return graphed("keyframe_descriptors_invariant", _keyframe_descriptors_invariant, (points, normals, valid),
+                   n_sample=n_sample, bins=bins)
+
+
+def _keyframe_descriptors_invariant(points, normals, valid, n_sample, bins):
     dtype, dev = points.dtype, points.device
     eps = 1e-12
     N = points.shape[-2]
@@ -289,6 +322,12 @@ def detect_loop_closures_descriptor(
     Returns:
         LoopCandidates with (..., K, 2) index pairs, i < j.
     """
+    return graphed("detect_loop_closures_descriptor", _detect_loop_closures_descriptor, (descriptors,),
+                   max_candidates=max_candidates, min_separation=min_separation,
+                   max_descriptor_dist=max_descriptor_dist)
+
+
+def _detect_loop_closures_descriptor(descriptors, max_candidates, min_separation, max_descriptor_dist):
     L = descriptors.shape[-2]
     diff = descriptors[..., :, None, :] - descriptors[..., None, :, :]
     rms = torch.sqrt((diff * diff).mean(-1))  # (..., L, L)
@@ -299,7 +338,7 @@ def detect_loop_closures_descriptor(
 
 def _yaw_seeds(yaw_hypotheses, dtype, device) -> torch.Tensor:
     """(H, 4, 4) rotations about the camera's up (y) axis."""
-    ang = torch.tensor(yaw_hypotheses, dtype=dtype, device=device)
+    ang = torch.stack([_full(a, dtype, device) for a in yaw_hypotheses])
     ca, sa = torch.cos(ang), torch.sin(ang)
     one, zero = torch.ones_like(ang), torch.zeros_like(ang)
     rows = [ca, zero, sa, zero, zero, one, zero, zero, -sa, zero, ca, zero, zero, zero, zero, one]
@@ -415,9 +454,9 @@ def _candidate_sets(poses, descriptors, detection, max_candidates, min_separatio
     """(candidates, ICP seed) per active detector, over (..., L) inputs."""
     sets = []
     if detection in ("pose", "both"):
-        sets.append((detect_loop_closures(poses, max_candidates, min_separation, max_distance, max_angle), "poses"))
+        sets.append((_detect_loop_closures(poses, max_candidates, min_separation, max_distance, max_angle), "poses"))
     if detection in ("appearance", "both"):
-        cand = detect_loop_closures_descriptor(descriptors, max_candidates, min_separation, max_descriptor_dist)
+        cand = _detect_loop_closures_descriptor(descriptors, max_candidates, min_separation, max_descriptor_dist)
         sets.append((cand, appearance_init))
     return sets
 
@@ -542,8 +581,24 @@ def close_loops_batched(
     Args / returns: as :func:`close_loops`, with a leading batch axis on
     ``poses`` (B, L, 4, 4), the frame tensors (B, L, N, ...),
     ``descriptors`` (B, L, D) and every output.
+
+    On a CUDA device the whole closure is one captured graph per set of
+    static arguments (``slam/stepgraph.graphed``).
     """
     _check_detection(detection, descriptors)
+    return graphed(
+        "close_loops_batched", _close_loops_batched, (poses, frame_points, frame_normals, frame_valid, descriptors),
+        max_candidates=max_candidates, min_separation=min_separation, max_distance=max_distance, max_angle=max_angle,
+        icp_numiters=icp_numiters, inlier_dist=inlier_dist, min_inlier_frac=min_inlier_frac,
+        refine_iters=refine_iters, odometry_weight=odometry_weight, loop_weight=loop_weight, detection=detection,
+        max_descriptor_dist=max_descriptor_dist, appearance_init=appearance_init,
+    )
+
+
+def _close_loops_batched(poses, frame_points, frame_normals, frame_valid, descriptors, max_candidates,
+                         min_separation, max_distance, max_angle, icp_numiters, inlier_dist, min_inlier_frac,
+                         refine_iters, odometry_weight, loop_weight, detection, max_descriptor_dist,
+                         appearance_init):
     B, L = poses.shape[:2]
     N = frame_points.shape[2]
     sets = _candidate_sets(poses, descriptors, detection, max_candidates, min_separation, max_distance, max_angle,
@@ -618,10 +673,18 @@ def close_loops_rgbd(
         **kwargs: forwarded to :func:`close_loops_batched`.
 
     Returns:
-        (B, L, 4, 4) refined trajectory.
+        (B, L, 4, 4) refined trajectory. On a CUDA device the clouds, the
+        descriptors and the closure are one captured graph per set of
+        static arguments (``slam/stepgraph.graphed``; ``rgb_seq`` is not
+        read).
     """
     if descriptor not in ("invariant", "grid"):
         raise ValueError(f"descriptor must be 'invariant' or 'grid', got {descriptor!r}")
+    return graphed("close_loops_rgbd", _close_loops_rgbd, (depth_seq, intrinsics, poses), dsratio=dsratio,
+                   descriptor=descriptor, **kwargs)
+
+
+def _close_loops_rgbd(depth_seq, intrinsics, poses, dsratio, descriptor, **kwargs):
     pts, nrm, val, nm, valid = frame_clouds_from_rgbd(depth_seq, intrinsics, dsratio)
     descs = None
     if kwargs.get("detection", "pose") in ("appearance", "both"):

@@ -44,8 +44,9 @@ When the graph runs, and when the same function runs eagerly, op by op
   - eager on the CPU (no graphs there), for a gradient outside a training
     step (autograd records its own graph), on a map-sharded arena or a mesh
     that runs a collective (gloo collectives cannot be captured; NCCL's are
-    not yet) and inside another capture (which then records the step
-    itself).
+    not yet) and inside another graph's warm-up or capture (which then
+    records the step itself, as ``jax.jit`` inlines a jitted function it
+    calls).
 
 A capture or a replay that fails raises; nothing reruns the step eagerly.
 
@@ -59,16 +60,27 @@ is captured and adds them to the wrappers' counters at every replay, so a
 run counts the launches of the eager run (a backward launches neither
 kernel).
 
+The JAX package also jits its loop closure and its refiners, each a
+``fori_loop`` of small ops: :func:`graphed` captures such a function of
+tensors whole (``close_loops_batched``, ``close_loops_rgbd``, the detectors
+and descriptors, ``pose_graph_refine``, ``ba_refine``, the managed run's
+boundary closure), its non-tensor arguments static. A graphed function
+called inside another graph's warm-up or capture runs eagerly there and is
+recorded in the outer graph, as ``jax.jit`` inlines a jitted function it
+calls.
+
 The graphs are cached like JAX's compiled programs: module-level for
 :func:`slam_sequence <gradslam_tpu_torch.slam.slam_sequence>` and the
-managed segments and ``slam_sequence_compacted``, per ``ICPSLAM``
-instance for ``step`` and ``step_state``, per :class:`GradStep` for a
-training step. Unlike a compiled program, a graph keeps device memory
-after its call returns: its static carry (an arena) and frame buffers, and
-its private pool (one step's intermediates; a training step's saved
-tensors of every frame). So each cache holds the
-:data:`MAX_GRAPHS` graphs used last and frees the others' memory when it
-drops them; :func:`clear_graphs` drops them all (``jax.clear_caches``).
+managed segments and ``slam_sequence_compacted``, module-level apart from
+those for the closures and refiners (so a closure never evicts the frame
+step of the run it closes), per ``ICPSLAM`` instance for ``step`` and
+``step_state``, per :class:`GradStep` for a training step. Unlike a
+compiled program, a graph keeps device memory after its call returns: its
+static carry (an arena) and frame buffers, and its private pool (one
+step's intermediates; a training step's saved tensors of every frame). So
+each cache holds the :data:`MAX_GRAPHS` graphs used last and frees the
+others' memory when it drops them; :func:`clear_graphs` drops them all
+(``jax.clear_caches``).
 """
 
 from __future__ import annotations
@@ -100,6 +112,8 @@ __all__ = [
     "value_and_grad",
     "sequence_graph",
     "run_graph",
+    "graphed",
+    "running",
     "state_tensors",
 ]
 
@@ -110,6 +124,7 @@ _KERNELS = (knn_kernel, winner_kernel)
 MAX_GRAPHS = 4
 
 _disabled = 0
+_running = 0  # graphs whose function runs now (a warm-up or a capture)
 
 
 @contextlib.contextmanager
@@ -122,6 +137,18 @@ def disable_graphs():
         yield
     finally:
         _disabled -= 1
+
+
+@contextlib.contextmanager
+def running():
+    """Marks a graph's function as running (its warm-up or its capture):
+    a graphed function it calls runs eagerly and is recorded in it."""
+    global _running
+    _running += 1
+    try:
+        yield
+    finally:
+        _running -= 1
 
 
 def eager_reason(tensors, shard=None, training=False, mesh=None) -> Optional[str]:
@@ -144,6 +171,8 @@ def eager_reason(tensors, shard=None, training=False, mesh=None) -> Optional[str
         return "a map-sharded arena"
     if mesh is not None and (mesh.shape["data"] > 1 or mesh.shape["map"] > 1 or dist.is_initialized()):
         return f"a mesh's collectives (data={mesh.shape['data']} x map={mesh.shape['map']})"
+    if _running and not (tensors[0].is_cuda and torch.cuda.is_current_stream_capturing()):
+        return "inside another graph's warm-up"
     if tensors[0].device.type != "cuda":
         return f"a {tensors[0].device.type} device"
     if torch.cuda.is_current_stream_capturing():
@@ -177,6 +206,9 @@ class GraphCache:
 
 _CACHES = weakref.WeakSet()
 _SEQUENCES = GraphCache()  # slam_sequence's, the managed segments' and slam_sequence_compacted's
+# loop closure's and the refiners' (``graphed``): a closure never evicts the
+# frame step of the run it closes
+_CLOSURES = GraphCache()
 
 
 def clear_graphs():
@@ -207,9 +239,11 @@ class _Captured:
     def __call__(self, fn):
         with torch.cuda.device(self.device):
             if not self.warm:
-                return self._warm_up(fn)
+                with running():
+                    return self._warm_up(fn)
             if self.graph is None:
-                self._capture(fn)
+                with running():
+                    self._capture(fn)
             self.graph.replay()
         for k, n in zip(_KERNELS, self.launches):
             k.launches += n
@@ -391,11 +425,29 @@ def sequence_graph(state, rgb_seq, depth_seq, intrinsics, poses_seq, opts, label
     return _SEQUENCES.get(StepGraph.key(*args), lambda: StepGraph(*args))
 
 
-def run_graph(name, fn, args):
-    """``fn(*args)`` through the module-level cache's :class:`FrameGraph`
-    for ``name`` (the run's static arguments, hashable) and the arguments'
-    shapes: a whole run captured as one graph."""
-    return _SEQUENCES.get(FrameGraph.key(name, args), lambda: FrameGraph(fn, args))(*args)
+def run_graph(name, fn, args, cache=None):
+    """``fn(*args)`` through the :class:`FrameGraph` of ``cache`` (default
+    the sequences' module-level cache) for ``name`` (the run's static
+    arguments, hashable) and the arguments' shapes: a whole run captured as
+    one graph."""
+    cache = _SEQUENCES if cache is None else cache
+    return cache.get(FrameGraph.key(name, args), lambda: FrameGraph(fn, args))(*args)
+
+
+def graphed(name, fn, tensors, **static):
+    """``fn(*tensors, **static)`` as the JAX package's ``jax.jit`` with
+    ``static`` as its static arguments (ints, floats, strings, None, tuples
+    of them): on a CUDA device, one :class:`FrameGraph` in the closures'
+    module-level cache for ``name``, the static values, the tensors' shapes
+    and dtypes (None entries allowed) and the device; by
+    :func:`eager_reason`'s rules (the CPU, :func:`disable_graphs`, an input
+    that requires grad, inside another graph) ``fn`` runs eagerly instead.
+    A float gate is a static value: a graph bakes it in, so a changed gate
+    makes a new graph. Loop closure and the refiners call it."""
+    if eager_reason(tensors) is not None:
+        return fn(*tensors, **static)
+    key = (name, tuple(sorted(static.items())))
+    return run_graph(key, lambda *args: fn(*args, **static), tensors, cache=_CLOSURES)
 
 
 class FrameGraph(_Graph):

@@ -1067,3 +1067,155 @@ def test_a_host_read_in_the_training_step_raises(cuda_device):
     with pytest.raises(Exception):
         step(params)
     clear_graphs()
+
+
+def _flat(x):
+    from gradslam_tpu_torch.slam.stepgraph import _tensors
+
+    return _tensors(x)
+
+
+def _closure_paths(dev):
+    """Each graphed loop-closure and refinement function of
+    ``slam/stepgraph.graphed`` at a small size: {name: (call, KNN launches)}."""
+    from gradslam_tpu_torch.geometry import se3_exp
+    from gradslam_tpu_torch.parallel import PoseGraph, ba_refine, pose_graph_refine
+    from gradslam_tpu_torch.slam import (
+        close_loops,
+        close_loops_batched,
+        close_loops_rgbd,
+        detect_loop_closures,
+        detect_loop_closures_descriptor,
+        keyframe_descriptors,
+        keyframe_descriptors_invariant,
+    )
+
+    dr, pts, nrm, val = (torch.from_numpy(x).to(dev) for x in _loop_clouds())
+    with disable_graphs():
+        desc = keyframe_descriptors_invariant(pts, nrm, val)
+    b = lambda x: torch.stack([x, x.flip(0)])  # two trajectories: a batch of (B, 6L, 6L) solves
+    c, d, K = (torch.from_numpy(x).to(dev) for x in _cycled_clip(8))
+    poses = torch.from_numpy(np.load(DATA / "poses.npy").astype(np.float32)[:, [i % 3 for i in range(8)]]).to(dev)
+    gen = np.random.default_rng(3)
+    L = 12
+    pg = se3_exp(torch.from_numpy(gen.normal(0, 0.2, (L, 6)).astype(np.float32)))
+    edges = torch.tensor([(i, i + 1) for i in range(L - 1)] + [(0, L - 1)], dtype=torch.int32)
+    graph = PoseGraph(pg, edges, torch.linalg.inv(pg[edges[:, 0].long()]) @ pg[edges[:, 1].long()],
+                      torch.ones(edges.shape[0]))
+    graph = PoseGraph(*(x.to(dev) for x in graph))
+    lms = torch.from_numpy(gen.uniform([-1, -1, 2], [1, 1, 4], (100, 3)).astype(np.float32)).to(dev)
+    obs_lm = torch.arange(100, device=dev).repeat_interleave(4)
+    obs_pose = torch.from_numpy(gen.integers(0, L, 400)).to(dev)
+    Tinv = torch.linalg.inv(graph.poses)[obs_pose]
+    obs = (Tinv[:, :3, :3] @ lms[obs_lm][:, :, None])[..., 0] + Tinv[:, :3, 3]
+    ba = (graph.poses, lms + 0.01, obs_pose, obs_lm, obs)
+    kw = dict(max_candidates=4, min_separation=5, max_distance=0.3)
+    return {
+        "close_loops_batched": (lambda: close_loops_batched(b(dr), b(pts), b(nrm), b(val), descriptors=b(desc),
+                                                            detection="both", **kw), 2 * (2 * 20 + 1)),
+        "close_loops": (lambda: close_loops(dr, pts, nrm, val, **kw), 2 * 20 + 1),
+        "close_loops_rgbd": (lambda: close_loops_rgbd(c, d, K, poses, detection="both", min_separation=2,
+                                                      max_candidates=2), 2 * (2 * 20 + 1)),
+        "detect_loop_closures": (lambda: detect_loop_closures(dr, **kw), 0),
+        "detect_loop_closures_descriptor": (lambda: detect_loop_closures_descriptor(desc, 4, 5, 0.5), 0),
+        "keyframe_descriptors_invariant": (lambda: keyframe_descriptors_invariant(pts, nrm, val), 0),
+        "keyframe_descriptors": (lambda: keyframe_descriptors(d[0, ..., 0], nrm.new_ones(d[0].shape[:3] + (3,)),
+                                                              d[0, ..., 0] > 0), 0),
+        "pose_graph_refine": (lambda: pose_graph_refine(graph, num_iters=5), 0),
+        "pose_graph_refine batched": (lambda: pose_graph_refine(PoseGraph(*(b(x) for x in graph)), num_iters=5), 0),
+        "ba_refine dense": (lambda: ba_refine(*ba, num_iters=3, solver="dense"), 0),
+        "ba_refine pcg": (lambda: ba_refine(*ba, num_iters=3, solver="pcg"), 0),
+    }
+
+
+CLOSURE_PATHS = ("close_loops_batched", "close_loops", "close_loops_rgbd", "detect_loop_closures",
+                 "detect_loop_closures_descriptor", "keyframe_descriptors_invariant", "keyframe_descriptors",
+                 "pose_graph_refine", "pose_graph_refine batched", "ba_refine dense", "ba_refine pcg")
+
+
+@pytest.mark.parametrize("name", CLOSURE_PATHS)
+def test_closure_graph_equals_the_eager_call(cuda_device, name):
+    """Each loop-closure and refinement function through its captured graph
+    (warm-up, capture, replays) against the same call op by op: every
+    output bit-equal, the same KNN launches, one cached graph that was
+    captured."""
+    from gradslam_tpu_torch.slam import stepgraph
+
+    call, knn_launches = _closure_paths(cuda_device)[name]
+    clear_graphs()
+    with disable_graphs():
+        ref, launches = _counted(call)
+    assert launches == (knn_launches, 0)
+    for _ in range(4):
+        out, launches = _counted(call)
+        assert launches == (knn_launches, 0)
+        for x, y in zip(_flat(out), _flat(ref)):
+            assert x.shape == y.shape and torch.equal(x, y)
+    (graph,) = stepgraph._CLOSURES.graphs.values()
+    assert graph.capture_s is not None and graph.launches == {"knn": knn_launches, "winner": 0}
+    clear_graphs()
+
+
+def test_a_host_read_in_the_closure_raises(cuda_device):
+    """A closure that reads the host cannot be captured: the call that
+    captures raises (nothing reruns it eagerly), and the next call after
+    ``clear_graphs()`` captures anew."""
+    from gradslam_tpu_torch.slam import close_loops, loopclosure
+
+    dr, pts, nrm, val = (torch.from_numpy(x).to(cuda_device) for x in _loop_clouds())
+    call = lambda: close_loops(dr, pts, nrm, val, max_candidates=4, min_separation=5, max_distance=0.3)
+    real = loopclosure.verify_loop_closures
+
+    def reading(*args, **kwargs):
+        Z, w = real(*args, **kwargs)
+        return Z, w if float(w.sum()) >= 0 else -w
+
+    clear_graphs()
+    loopclosure.verify_loop_closures = reading
+    try:
+        call()  # the warm-up, op by op
+        with pytest.raises(Exception):
+            call()
+    finally:
+        loopclosure.verify_loop_closures = real
+    clear_graphs()
+    with disable_graphs():
+        ref = call()
+    for _ in range(3):
+        out = call()
+        assert torch.equal(out[0], ref[0]) and torch.equal(out[2], ref[2])
+    clear_graphs()
+
+
+def test_loopclosure_training_step_is_one_graph_on_the_card(cuda_device):
+    """``examples_torch/train_loopclosure_ate.py``'s step (``GradStep``: the
+    closure recorded inside the training graph): three steps op by op,
+    then through its graph; the loss and loop weights bit-equal, the new
+    log-scale within four times the op-by-op spread, 17 KNN launches a
+    step (the forward's), one cached graph."""
+    import importlib.util
+
+    from gradslam_tpu_torch import GradStep
+    from gradslam_tpu_torch.slam import stepgraph
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "examples_torch" / "train_loopclosure_ate.py"
+    spec = importlib.util.spec_from_file_location("train_loopclosure_ate_torch", path)
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    problem = ex.make_problem(13, 256, 0.02, 1.15, 0, cuda_device)
+    step = GradStep(ex.sgd)
+    lr = torch.full((), 0.4, device=cuda_device)
+    log_s = torch.zeros((), device=cuda_device)
+    clear_graphs()
+    with disable_graphs():
+        eager = [_counted(lambda: step(log_s, lr, *problem)) for _ in range(3)]
+    graphed = [_counted(lambda: step(log_s, lr, *problem)) for _ in range(3)]
+    assert len(step.graphs.graphs) == 1 and not stepgraph._CLOSURES.graphs
+    assert all(n == (17, 0) for _, n in eager + graphed)
+    (new0, loss0, w0), _ = eager[0]
+    assert all(torch.equal(out[1], loss0) and torch.equal(out[2], w0) for out, _ in eager + graphed)
+    ops = [out[0] for out, _ in eager + graphed[:1]]  # the op-by-op steps and the graph's warm-up
+    spread = max(float((a - b).abs()) for i, a in enumerate(ops) for b in ops[i + 1:])
+    cross = max(float((out[0] - e).abs()) for out, _ in graphed[1:] for e in ops)
+    assert cross <= max(4 * spread, 1e-6 * float(new0.abs())), (cross, spread)
+    clear_graphs()

@@ -32,7 +32,16 @@ profiled the same way; and the whole training step,
 CUDA graph on the card), graphed and op by op in turns, with the graph's
 capture seconds, the peak memory of its first two calls (warm-up, capture),
 the memory it keeps after they return and what ``clear_graphs()`` frees.
-With ``--out`` it also writes the full table as JSON there.
+With ``--closure`` it profiles loop closure and the refiners the same way,
+graphed (``slam/stepgraph.graphed``) and op by op in turns, per call:
+cell 10's ``close_loops_rgbd(detection='both')`` (the loop of
+``chip_smoke.py`` phase 19, 100 frames ray-cast at 480x640, closed from
+``ICPSLAM(odom_targets='recent')``'s trajectory), ``pose_graph_refine`` at
+L=256 (10 iterations), ``ba_refine`` with both solvers at phase 21's
+smallest and largest problems (8 iterations) and
+``examples_torch/train_loopclosure_ate.py``'s training step (one
+``GradStep`` graph); ``--only`` keeps those whose name has one of its
+words too. With ``--out`` it also writes the full table as JSON there.
 """
 
 from __future__ import annotations
@@ -130,15 +139,9 @@ def profile_backward(name, colors, depths, K, gt, dev, reps=1, top=15):
 
 def profile_train_step(name, colors, depths, K, gt, dev, reps=1, top=15):
     """A whole training step, ``value_and_grad(slam_loss)`` with respect to
-    the calibration parameters: op by op (``disable_graphs()``) and through
-    its captured graph, each warmed up, ``reps`` timed runs in turns and
-    one profiled run of each; returns the two reports, the graphed one with
-    the graph's capture seconds and memory."""
-    import contextlib
-
-    from torch.profiler import ProfilerActivity, profile
-
-    from gradslam_tpu_torch import PointFusion, clear_graphs, disable_graphs, value_and_grad
+    the calibration parameters, op by op and through its captured graph
+    (:func:`profile_graphed`)."""
+    from gradslam_tpu_torch import PointFusion, value_and_grad
     from gradslam_tpu_torch.parallel import DepthCalibParams, slam_loss
 
     B, L, H, W = colors.shape[:4]
@@ -146,7 +149,23 @@ def profile_train_step(name, colors, depths, K, gt, dev, reps=1, top=15):
     rgb, depth, Kt, gt = (torch.from_numpy(x).to(dev) for x in (colors, depths, K, gt))
     params = DepthCalibParams(device=dev)
     vg = value_and_grad(slam_loss)
-    step = lambda: vg(params, rgb, depth, Kt, gt, opts, L * H * W)
+    return profile_graphed(f"train step {name}", lambda: vg(params, rgb, depth, Kt, gt, opts, L * H * W),
+                           lambda: vg.graphs.graphs, (B, L), reps, top)
+
+
+def profile_graphed(name, step, graphs, batch_frames, reps=1, top=15):
+    """``step()`` op by op (``disable_graphs()``) and through its captured
+    graph, the one graph of the cache ``graphs()`` returns: each warmed up,
+    ``reps`` timed runs in turns and one profiled run of each; returns the
+    two reports, the graphed one with the graph's capture seconds, the peak
+    memory of its first two calls (warm-up, capture), the memory it keeps
+    after they return and what ``clear_graphs()`` frees."""
+    import contextlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from gradslam_tpu_torch import clear_graphs, disable_graphs
+
     mode = lambda m: disable_graphs() if m == "eager" else contextlib.nullcontext()
     clear_graphs()
     with disable_graphs():
@@ -160,7 +179,7 @@ def profile_train_step(name, colors, depths, K, gt, dev, reps=1, top=15):
     step()  # its capture and first replay
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    (graph,) = vg.graphs.graphs.values()
+    (graph,) = graphs().values()
     memory = dict(capture_s=graph.capture_s, first_two_calls_s=first_s,
                   peak_bytes=torch.cuda.max_memory_allocated() - before,
                   kept_bytes=torch.cuda.memory_allocated() - before)
@@ -180,7 +199,7 @@ def profile_train_step(name, colors, depths, K, gt, dev, reps=1, top=15):
             step()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        out.append(_report(f"train step {name} [{m}]", prof, wall, walls[m], (B, L), top))
+        out.append(_report(f"{name} [{m}]", prof, wall, walls[m], batch_frames, top))
     torch.cuda.empty_cache()
     held, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
     clear_graphs()
@@ -189,8 +208,47 @@ def profile_train_step(name, colors, depths, K, gt, dev, reps=1, top=15):
     memory.update(cleared_allocated_bytes=held - torch.cuda.memory_allocated(),
                   cleared_reserved_bytes=reserved - torch.cuda.memory_reserved())
     out[1].update(memory)
-    print(f"  train step {name} graph: {memory}", flush=True)
+    print(f"  {name} graph: {memory}", flush=True)
     return out
+
+
+def closure_points(dev, chip_smoke, keep):
+    """(name, call, its graph cache's dict) of each loop-closure and
+    refinement point (``--closure``) whose name ``keep`` accepts."""
+    from gradslam_tpu_torch import GradStep, ICPSLAM, RGBDImages
+    from gradslam_tpu_torch.parallel import PoseGraph, ba_refine, pose_graph_refine
+    from gradslam_tpu_torch.slam import close_loops_rgbd, stepgraph
+
+    closures = lambda: stepgraph._CLOSURES.graphs
+    points = []
+    H, W = chip_smoke.E2E_HW
+    name = f"close_loops_rgbd both cell 10 L={chip_smoke.LOOP_FRAMES} {H}x{W}"
+    if keep(name):
+        colors, depths, K, _ = chip_smoke._render_loop_card(dev, chip_smoke.LOOP_FRAMES, H, W, 0.55, 0.002)
+        rgbd = RGBDImages(colors, depths, K, device=dev)
+        _, plain = ICPSLAM(odom_targets="recent", device=dev)(rgbd)
+        rgb, depth, Kt = rgbd.rgb_image, rgbd.depth_image, rgbd.intrinsics
+        points.append((name, lambda: close_loops_rgbd(rgb, depth, Kt, plain, detection="both",
+                                                      **chip_smoke.LOOP_GATES), closures))
+    g = PoseGraph(*(x.to(dev) for x in chip_smoke._pose_graph_problem()[0]))
+    name = f"pose_graph_refine L={g.poses.shape[0]} 10 iterations"
+    if keep(name):
+        points.append((name, lambda: pose_graph_refine(g, num_iters=10), closures))
+    for L, M in chip_smoke.SHARDED_BA:
+        args = tuple(torch.from_numpy(x).to(dev) for x in chip_smoke._ba_problem(L, M))
+        for solver in ("dense", "pcg"):
+            kw = dict(num_iters=8, max_obs_per_landmark=chip_smoke.BA_OBS_PER_LM, solver=solver)
+            name = f"ba_refine {solver} L={L} M={M} 8 iterations"
+            if keep(name):
+                points.append((name, lambda args=args, kw=kw: ba_refine(*args, **kw), closures))
+    name = "train_loopclosure_ate step L=13 N=256"
+    if keep(name):
+        ex = chip_smoke._example("train_loopclosure_ate")
+        problem = ex.make_problem(13, 256, 0.02, 1.15, 0, dev)
+        step = GradStep(ex.sgd)
+        lr, log_s = torch.full((), 0.4, device=dev), torch.zeros((), device=dev)
+        points.append((name, lambda: step(log_s, lr, *problem), lambda: step.graphs.graphs))
+    return points
 
 
 def _host_calls(prof, names):
@@ -294,6 +352,9 @@ def main(argv=None) -> int:
     ap.add_argument("--only", help="comma-separated words: profile only the points whose name has one")
     ap.add_argument("--eager", action="store_true",
                     help="also run each point op by op (disable_graphs()), in turns with the graphed runs")
+    ap.add_argument("--closure", action="store_true",
+                    help="also profile loop closure (cell 10), the refiners and the loop-closure training step, "
+                         "graphed and op by op, per call")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_torch_port: no CUDA device", file=sys.stderr)
@@ -330,6 +391,10 @@ def main(argv=None) -> int:
             ))
             res["points"] += profile_train_step(
                 name, colors, depths / chip_smoke.TRUE_SCALE, K, chip_smoke._cycled_poses(L), dev, args.reps)
+    if args.closure:
+        keep = lambda name: words is None or any(w in name for w in words)
+        for name, call, graphs in closure_points(dev, chip_smoke, keep):
+            res["points"] += profile_graphed(name, call, graphs, (1, 1), args.reps)
     if args.out:
         out = pathlib.Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
