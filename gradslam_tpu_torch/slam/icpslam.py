@@ -50,6 +50,7 @@ from ..structures.rgbdimages import (
     compute_vertex_map,
 )
 from ..utils.device import resolve_device
+from ..utils.profiling import spanned
 from . import stepgraph
 from .fusionutils import (
     _project_points_to_frame,
@@ -181,6 +182,7 @@ def _default_tgt_capacity(H, W, ds):
     return max(1024, ((cap + 1023) // 1024) * 1024)
 
 
+@spanned("odometry")
 def _localize(map_state, prev_pose, rgb, depth, intrinsics, opts: SLAMOptions, cand=None,
               local_maps=None, shard=None):
     """Odometry: the new (B, 4, 4) pose of the live frame.
@@ -203,26 +205,12 @@ def _localize(map_state, prev_pose, rgb, depth, intrinsics, opts: SLAMOptions, c
     B, H, W, _ = rgb.shape
     _, _, gv, _, valid = _frame_maps(rgb, depth, intrinsics, prev_pose, local_maps)
     levels = tuple(opts.pyramid or (opts.dsratio,))
-    tgt_caps = tuple(opts.tgt_capacity or _default_tgt_capacity(H, W, ds) for ds in levels)
-
     if shard is None:
         shard = MapShard.whole(map_state.capacity)
-    if cand is None:
-        win = _resolve_assoc_window(opts.assoc_window, shard.capacity) if opts.fusion else None
-        src_rows, src_live = shard.window(map_state, win)
-    else:
-        src_rows, src_live = _odometry_candidates(map_state, *cand, win=H * W, shard=shard)
-    h, w, active = _project_points_to_frame(src_rows[..., 0:3], src_live, prev_pose, intrinsics, H, W)
+    targets = _odometry_targets(map_state, prev_pose, intrinsics, opts, cand, shard, H, W, levels)
 
     transform = None
-    for ds, tc in zip(levels, tgt_caps):
-        on_grid = active & (h % ds == 0) & (w % ds == 0)
-        if cand is None:
-            _, _, slots, tgt_valid = shard.compact(on_grid, tc)
-            rows = shard.gather_rows(map_state.data[..., 0:6], slots)
-        else:
-            idx, tgt_valid = compact_masked(on_grid, tc)
-            rows = _take_rows(src_rows, idx)
+    for ds, (rows, tgt_valid) in zip(levels, targets):
         src = gv[:, ::ds, ::ds].reshape(B, -1, 3)
         src_valid = valid[:, ::ds, ::ds].reshape(B, -1).to(src.dtype)
         common = dict(
@@ -243,6 +231,32 @@ def _localize(map_state, prev_pose, rgb, depth, intrinsics, opts: SLAMOptions, c
     return compose_transformations(transform, prev_pose)
 
 
+@spanned("odometry.targets")
+def _odometry_targets(map_state, prev_pose, intrinsics, opts: SLAMOptions, cand, shard, H, W, levels):
+    """The odometry targets of each pyramid level: the candidate rows
+    (``cand``'s, or the arena window's) projected at the previous pose,
+    those on the level's pixel grid compacted into its fixed capacity and
+    their rows gathered. Returns [(rows (B, T, 6), valid (B, T)) a level]."""
+    if cand is None:
+        win = _resolve_assoc_window(opts.assoc_window, shard.capacity) if opts.fusion else None
+        src_rows, src_live = shard.window(map_state, win)
+    else:
+        src_rows, src_live = _odometry_candidates(map_state, *cand, win=H * W, shard=shard)
+    h, w, active = _project_points_to_frame(src_rows[..., 0:3], src_live, prev_pose, intrinsics, H, W)
+    targets = []
+    for ds in levels:
+        tc = opts.tgt_capacity or _default_tgt_capacity(H, W, ds)
+        on_grid = active & (h % ds == 0) & (w % ds == 0)
+        if cand is None:
+            _, _, slots, tgt_valid = shard.compact(on_grid, tc)
+            targets.append((shard.gather_rows(map_state.data[..., 0:6], slots), tgt_valid))
+        else:
+            idx, tgt_valid = compact_masked(on_grid, tc)
+            targets.append((_take_rows(src_rows, idx), tgt_valid))
+    return targets
+
+
+@spanned("odometry")
 def _localize_projective(map_state, prev_pose, model_img, rgb, depth, intrinsics,
                          opts: SLAMOptions, local_maps=None, model_rows=None, shard=None):
     """Odometry by projective association against the model image that the
@@ -287,6 +301,7 @@ def _localize_projective(map_state, prev_pose, model_img, rgb, depth, intrinsics
     return compose_transformations(transform, prev_pose)
 
 
+@spanned("mapping")
 def _map_update(map_state, pose, rgb, depth, intrinsics, opts: SLAMOptions,
                 return_active: bool = False, labels=None, local_maps=None, shard=None):
     """Mapping: fuse (or aggregate) the live frame, and its optional (B, H, W)
@@ -371,6 +386,7 @@ class SLAMState(NamedTuple):
     model_rows: Optional[torch.Tensor] = None
 
 
+@spanned("init_state")
 def slam_init_state(rgb, depth, intrinsics, opts: SLAMOptions, capacity: int, pose0=None,
                     labels=None, shard=None) -> SLAMState:
     """Maps the first (B, H, W, .) frame, and its optional (B, H, W)
@@ -445,6 +461,7 @@ def slam_step_state(state: SLAMState, rgb, depth, intrinsics, opts: SLAMOptions,
     return SLAMState(m, pose, slots, valid, app_start, model_img, model_rows)
 
 
+@spanned("slam_sequence")
 def slam_sequence(rgb_seq, depth_seq, intrinsics, poses_seq, opts: SLAMOptions, capacity: int,
                   labels_seq=None, shard=None):
     """Runs SLAM over a whole (B, L, H, W, .) sequence.
@@ -676,6 +693,7 @@ class ICPSLAM:
             rgbd.rgb_image[:, 0], rgbd.depth_image[:, 0], rgbd.intrinsics, self.opts, cap, pose0
         )
 
+    @spanned("step_state")
     def step_state(self, state: SLAMState, live_frame: RGBDImages) -> SLAMState:
         """One incremental step on a :class:`SLAMState`.
 

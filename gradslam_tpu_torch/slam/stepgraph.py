@@ -98,6 +98,7 @@ import torch.distributed as dist
 from ..ops.knn import knn_kernel
 from ..ops.winner import winner_kernel
 from ..structures.maparena import MapState
+from ..utils.profiling import span
 
 __all__ = [
     "MAX_GRAPHS",
@@ -244,7 +245,8 @@ class _Captured:
             if self.graph is None:
                 with running():
                     self._capture(fn)
-            self.graph.replay()
+            with span("graph.replay"):
+                self.graph.replay()
         for k, n in zip(_KERNELS, self.launches):
             k.launches += n
         return self.out
@@ -379,7 +381,8 @@ class StepGraph(_Graph):
 
         new = slam_step_state(self.carry, self.rgb, self.depth, self.intrinsics, self.opts, self.gt_pose,
                               labels=self.labels, shard=self.shard)
-        _assign(state_tensors(self.carry), state_tensors(new))
+        with span("carry", self.carry.pose):
+            _assign(state_tensors(self.carry), state_tensors(new))
         return self.carry
 
     def load(self, state, intrinsics):
@@ -387,17 +390,26 @@ class StepGraph(_Graph):
         _assign(state_tensors(self.carry), state_tensors(state))
         self.intrinsics.copy_(intrinsics)
 
-    def step(self, rgb, depth, gt_pose=None, labels=None):
-        """One frame step from the carry; returns the carry."""
+    def _frame(self, rgb, depth, gt_pose=None, labels=None):
+        """Copies a frame into the frame buffers."""
         for buf, x in ((self.rgb, rgb), (self.depth, depth), (self.gt_pose, gt_pose), (self.labels, labels)):
             if buf is not None:
                 buf.copy_(x)
+
+    def step(self, rgb, depth, gt_pose=None, labels=None):
+        """One frame step from the carry; returns the carry."""
+        self._frame(rgb, depth, gt_pose, labels)
         return self._run(self._step)
 
     def step_state(self, state, rgb, depth, intrinsics, gt_pose=None):
         """One frame step from ``state``; returns a copy the caller owns."""
-        self.load(state, intrinsics)
-        return _clone(self.step(rgb, depth, gt_pose))
+        with span("step_state.handover"):
+            self.load(state, intrinsics)
+            self._frame(rgb, depth, gt_pose)
+        with span("step_state.replay"):
+            carry = self._run(self._step)
+        with span("step_state.copy_out"):
+            return _clone(carry)
 
     def run(self, state, rgb_seq, depth_seq, intrinsics, poses_seq, labels_seq, t0: int, t1: int):
         """Frames ``[t0, t1)`` of (B, L, ...) sequences from ``state``.
@@ -444,10 +456,11 @@ def graphed(name, fn, tensors, **static):
     that requires grad, inside another graph) ``fn`` runs eagerly instead.
     A float gate is a static value: a graph bakes it in, so a changed gate
     makes a new graph. Loop closure and the refiners call it."""
-    if eager_reason(tensors) is not None:
-        return fn(*tensors, **static)
-    key = (name, tuple(sorted(static.items())))
-    return run_graph(key, lambda *args: fn(*args, **static), tensors, cache=_CLOSURES)
+    with span(name):
+        if eager_reason(tensors) is not None:
+            return fn(*tensors, **static)
+        key = (name, tuple(sorted(static.items())))
+        return run_graph(key, lambda *args: fn(*args, **static), tensors, cache=_CLOSURES)
 
 
 class FrameGraph(_Graph):
@@ -503,10 +516,12 @@ class GradGraph(_Graph):
 
     def __call__(self, params, *args):
         tensors = [(d, s) for d, s in zip(self.args, args) if torch.is_tensor(d)]
-        with torch.no_grad():
+        with span("train.handover"), torch.no_grad():
             _assign(_leaves(self.params), _leaves(params))
             _assign([d for d, _ in tensors], [s for _, s in tensors])
-        return _clone(self._run(lambda: self.step(self.params, *self.args)))
+        with span("train.replay"):
+            out = self._run(lambda: self.step(self.params, *self.args))
+        return _clone(out)
 
 
 class GradStep:
@@ -536,12 +551,13 @@ class GradStep:
         return eager_reason(tensors, self.shard, training=True, mesh=self.mesh)
 
     def __call__(self, params, *args):
-        if self.eager_reason(params, *args) is not None:
-            if not isinstance(params, torch.nn.Module):
-                params = params.detach().requires_grad_(True)
-            return self.step(params, *args)
-        graph = self.graphs.get(GradGraph.key(params, args), lambda: GradGraph(self.step, params, args))
-        return graph(params, *args)
+        with span("GradStep"):
+            if self.eager_reason(params, *args) is not None:
+                if not isinstance(params, torch.nn.Module):
+                    params = params.detach().requires_grad_(True)
+                return self.step(params, *args)
+            graph = self.graphs.get(GradGraph.key(params, args), lambda: GradGraph(self.step, params, args))
+            return graph(params, *args)
 
 
 def value_and_grad(fn) -> GradStep:
