@@ -195,7 +195,20 @@ full-arena fusion) and ``PointFusion(assoc='projective', assoc_window=...)``
      the eager run's and to the profiler's kernels, the training loss
      bit-equal, its update within the op-by-op spread and the recovered
      scale within 1e-4 of the op-by-op loop's; ms, host launch calls,
-     capture seconds and the memory kept and freed logged.
+     capture seconds and the memory kept and freed logged;
+ 35. the mask scan kernel (``csrc/scan.cu``, behind ``compact_masked`` and
+     ``append_slots``) against its plain version, bit for bit, at the main
+     path's shapes (seq64's and the online session's arenas, the odometry
+     targets, a frame's appends, ``compact_map``'s arena), both epilogues
+     (the card tests take the edge cases); timed there and on the
+     masks the paths below compacted, beside the plain version (the cumsum
+     chain), ``torch.cumsum`` alone and the bound; then the scan's kernel
+     calls on every path that compacts or appends (``slam_sequence`` at
+     seq64's arena, ``init_state`` / ``step_state`` at the online arena,
+     the training step, block gating, ``compact_slam_state`` and
+     ``append_rows_to_map``): every call of
+     each call site one kernel call, no ``torch.cumsum`` on the card, and
+     the graphed runs' counts the op-by-op run's.
 
 On the card ``slam_sequence``, the managed segments, ``ICPSLAM``'s steps,
 loop closure and the refiners run as captured CUDA graphs. The phases that
@@ -218,15 +231,23 @@ set in a loop closure, the winner kernel once per fusion step on both, once
 per compaction and once per accepted closure of the managed run (the
 refresh's selection), neither in a backward; in phases 22-29 each
 rank counts its own launches; phase 30 counts the in-process CLI run's.
-Any failed check raises. The line before the last is a JSON object with
+The mask scan counts its calls on its own wrapper (``mask_scan_kernel``):
+three a frame step on the cells' paths (the arena's compaction, the
+odometry targets, the append), two kernels on the device each. Phase 35
+counts them on every path that compacts or appends; each traced run of
+phases 32-35 holds the calls that the run counted against the
+``gs_mask_scan_*`` kernels in its trace. Any failed check raises. The line before the last is a JSON object with
 one entry per kernel; the last line is
 ``{"ok": true, "device": ...}``. Needs one card; exits non-zero without one.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -3164,8 +3185,6 @@ def _cli(script, argv, dev):
 
 def _numbers(text):
     """The numbers in ``text``."""
-    import re
-
     return [float(x) for x in re.findall(r"[-+]?\d*\.?\d+(?:e[-+]?\d+)?", text)]
 
 
@@ -3344,29 +3363,88 @@ HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchCooperativeKernel", "cuLaunchKer
                  "cuGraphLaunch")
 
 
+# Kineto's log lines, which ``_kineto_log`` takes off stderr: its records
+# count of a trace and the lines around it
+KINETO_LINE = re.compile(r"^(INFO|STAGE|USDT|WARNING):\S+ \S+ \d+:\d+ \w+\.cpp:\d+\]|^  (Log file|Trace start time|"
+                         r"Trace duration|Warmup duration|Max GPU buffer size|Enabled activities):")
+OUT_OF_RANGE = re.compile(r"Record counts: Out-of-range = (\d+)")
+
+
+@contextlib.contextmanager
+def _kineto_log():
+    """Takes the process's stderr (file descriptor 2, where Kineto writes)
+    while open; then yields {"out_of_range": the device records that
+    Kineto's traces in it dropped as outside their window, None where its
+    INFO log (``KINETO_LOG_LEVEL=1``, which ``main`` sets before the first
+    trace) did not say} and writes the rest of what it took back to stderr."""
+    found = {"out_of_range": None}
+    sys.stderr.flush()
+    saved = os.dup(2)
+    with tempfile.TemporaryFile() as f:
+        os.dup2(f.fileno(), 2)
+        try:
+            yield found
+        finally:
+            sys.stderr.flush()
+            os.dup2(saved, 2)
+            os.close(saved)
+            f.seek(0)
+            lines = f.read().decode(errors="replace").splitlines()
+    counts = [int(m.group(1)) for line in lines for m in [OUT_OF_RANGE.search(line)] if m]
+    found["out_of_range"] = sum(counts) if counts else None
+    rest = [line for line in lines if not KINETO_LINE.match(line)]
+    if rest:
+        print("\n".join(rest), file=sys.stderr, flush=True)
+
+
 def _profiled(name, fn):
     """``fn()`` under ``torch.profiler`` with the launch counts set to 0
     just before it: the counts that the replays added, held against the
-    port's kernels that the device ran (by their CUDA functions' names).
-    Returns (the counts, the host's launch calls)."""
+    port's kernels that the device ran (by their CUDA functions' names),
+    and the mask scan's counted calls, two kernels each, against its
+    ``gs_mask_scan_count`` and ``gs_mask_scan_place`` records. Returns (the
+    counts, the host's launch calls).
+
+    A trace can leave device records out: Kineto drops the records whose
+    device timestamps fall outside the trace's window, and counts them (an
+    H100 run lost the last 5,207 records of graph cell 2's 74,463 so, in 1
+    of 32 traces). A trace short of the counts is traced again, up to three
+    traces, only where Kineto's count of such records covers what it lacks;
+    any other difference fails."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    _reset_launches()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+    from gradslam_tpu_torch.ops import mask_scan_kernel
+
+    for attempt in (1, 2, 3):
         torch.cuda.synchronize()
-    counted = _launches()
-    ran = {"knn": 0, "winner": 0}
-    host = 0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            ran["knn"] += "knn_cluster" in e.name
-            ran["winner"] += "winner_grid" in e.name
-        else:
-            host += e.name.startswith(HOST_LAUNCHES)
-    _check(ran == counted, f"{name}: the device ran {ran} port kernels, the counters say {counted}")
-    return counted, host
+        _reset_launches()
+        mask_scan_kernel.launches = 0
+        with _kineto_log() as kineto:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+        counted = _launches()
+        want = {**counted, "gs_mask_scan_count": mask_scan_kernel.launches,
+                "gs_mask_scan_place": mask_scan_kernel.launches}
+        ran = dict.fromkeys(want, 0)
+        host = 0
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                ran["knn"] += "knn_cluster" in e.name
+                ran["winner"] += "winner_grid" in e.name
+                ran["gs_mask_scan_count"] += "gs_mask_scan_count" in e.name
+                ran["gs_mask_scan_place"] += "gs_mask_scan_place" in e.name
+            else:
+                host += e.name.startswith(HOST_LAUNCHES)
+        if ran == want:
+            return counted, host
+        short, dropped = sum(want[k] - ran[k] for k in want), kineto["out_of_range"]
+        _log(f"{name}: trace {attempt} of 3 holds {ran} port kernels, the counters say {want}; Kineto dropped "
+             f"{dropped} device records outside the trace's window")
+        _check(dropped is not None and all(ran[k] <= want[k] for k in want) and dropped >= short,
+               f"{name}: the device ran {ran} port kernels, the counters say {want}, and Kineto dropped {dropped} "
+               f"records")
+    _check(False, f"{name}: three traces short of the counters, the last {ran} against {want}")
 
 
 def _profiled_launches(name, fn):
@@ -3752,7 +3830,10 @@ def train_graph_cell(dev, name, clip, cpu_grads=None):
          f"allocated ({buffers} static buffers) and {freed[1]} reserved bytes")
     _check(err is None or err <= 1e-3, f"train {name}: card vs cpu {err}")
     expected = {"knn": (L - 1) * 40, "winner": L}
-    _check(all(r[2] == expected for r in runs.values()) and profiled == per_replay == expected,
+    # a replay also counts the mask scan's calls: the first frame's
+    # compaction and append, and three a later frame (the odometry targets)
+    _check(all(r[2] == expected for r in runs.values()) and profiled == expected
+           and per_replay == {**expected, "mask_scan": 3 * L - 1},
            f"train {name}: launches {[r[2] for r in runs.values()]}, profiled {profiled}, a replay {per_replay}")
     return runs["graphed"][2]
 
@@ -4150,16 +4231,312 @@ def closure_graph_phase(dev, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 35. the mask scan kernel (csrc/scan.cu)
+# ---------------------------------------------------------------------------
+
+# (B, N, out_size or None for the slots epilogue, share selected): the main
+# path's shapes. seq64's arena (past out_size), the online session's arena
+# (inside it), the odometry targets over the carried active set, a frame's
+# appends, compact_map's whole training arena
+SCAN_SHAPES = {
+    "arena seq64": (2, 4_915_200, 153_600, 0.05),
+    "arena online": (1, 7_680_000, 153_600, 0.015),
+    "odometry targets": (2, 230_400, 19_456, 0.1),
+    "appends": (2, 76_800, None, 0.4),
+    "compact_map": (2, 1_228_800, 1_228_800, 0.6),
+}
+# the modules that call the scan's two public functions, by the names they import
+SCAN_SITES = (("slam.mapshard", "compact_masked"), ("slam.icpslam", "compact_masked"), ("slam.fusionutils", "compact_masked"),
+              ("slam.fusionutils", "append_slots"), ("slam.lifecycle", "compact_masked"),
+              ("structures.maparena", "compact_masked"), ("structures.maparena", "append_slots"))
+# the path whose count the kernels line gives
+SCAN_SEQ = "slam_sequence seq64 geometry L=8"
+
+
+def _scan_mask(dev, B, N, share, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    mask = torch.rand((B, N), generator=gen, device=dev) < share
+    num_points = torch.randint(0, 100_000, (B,), generator=gen, device=dev, dtype=torch.int32)
+    return mask, num_points
+
+
+def _scan_equal(name, mask, num_points, out_size):
+    """The public function on the card against the plain version, bit for
+    bit, and one kernel call a call."""
+    from gradslam_tpu_torch.ops import (append_slots, append_slots_reference, compact_masked,
+                                        compact_masked_reference, mask_scan_kernel)
+
+    before = mask_scan_kernel.launches
+    if out_size is None:
+        got, want = append_slots(num_points, mask), append_slots_reference(num_points, mask)
+    else:
+        got, want = compact_masked(mask, out_size), compact_masked_reference(mask, out_size)
+    _check(mask_scan_kernel.launches == before + 1, f"scan {name}: {mask_scan_kernel.launches - before} calls")
+    _check(all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want)),
+           f"scan {name}: differs from the plain version")
+
+
+def _scan_bound_ms(B, N, out_size):
+    """The least time of a call: the mask read once and each index written
+    once, at the HBM rate."""
+    return (B * N + 4 * B * (N if out_size is None else out_size)) / HBM_BYTES_PER_S * 1e3
+
+
+def _time_scan(name, mask, num_points, out_size):
+    """The kernel's device time (the wrapper's call: its zeroed output and
+    two launches) and with the validity mask (``compact_masked``), the plain
+    version's, ``torch.cumsum``'s alone (the library's scan of the same
+    rows) and the bound, in ms."""
+    from gradslam_tpu_torch.ops import (append_slots_reference, compact_masked, compact_masked_reference,
+                                        mask_scan_kernel)
+
+    B, N = mask.shape
+    if out_size is None:
+        kernel, plain = (lambda: mask_scan_kernel.slots(mask, num_points),
+                         lambda: append_slots_reference(num_points, mask))
+    else:
+        kernel, plain = (lambda: mask_scan_kernel.compact(mask, out_size),
+                         lambda: compact_masked_reference(mask, out_size))
+    row = {"kernel_ms": _time_ms(kernel, 50)}
+    row["public_ms"] = (_time_ms(lambda: compact_masked(mask, out_size), 50) if out_size is not None
+                        else row["kernel_ms"])
+    row["plain_ms"] = _time_ms(plain, 10)
+    row["library_ms"] = _time_ms(lambda: torch.cumsum(mask, dim=1, dtype=torch.int32), 10)
+    row["bound_ms"] = _scan_bound_ms(B, N, out_size)
+    _log(f"scan {name} B={B} N={N} out_size={out_size}: kernel {row['kernel_ms']:.6f} ms, with the validity "
+         f"mask {row['public_ms']:.6f}, plain {row['plain_ms']:.6f}, torch.cumsum alone {row['library_ms']:.6f}, "
+         f"bound {row['bound_ms']:.6f}")
+    _check(row["public_ms"] <= row["plain_ms"], f"scan {name}: slower than the plain version")
+    return row
+
+
+class _ScanTap:
+    """While open: each call of the scan's public functions from the
+    modules that use them (``SCAN_SITES``), with the kernel calls it made,
+    and the last mask of each site, shape and ``out_size``; each
+    ``_append_frame`` call's kernel calls; ``torch.cumsum`` calls on CUDA
+    tensors."""
+
+    def __init__(self):
+        import importlib
+
+        from gradslam_tpu_torch.slam import fusionutils
+
+        self.calls, self.append_frames, self.masks, self.cumsum = [], [], {}, 0
+        self.patched = []
+        for mod_name, fn_name in SCAN_SITES:
+            mod = importlib.import_module(f"gradslam_tpu_torch.{mod_name}")
+            real = getattr(mod, fn_name)
+            site = f"{mod_name.split('.')[-1]}.{fn_name}"
+
+            def compact(mask, out_size, *args, site=site, real=real):
+                return self._call(site, mask, out_size, None, lambda: real(mask, out_size, *args))
+
+            def slots(num_points, mask, site=site, real=real):
+                return self._call(site, mask, None, num_points, lambda: real(num_points, mask))
+
+            self._patch(mod, fn_name, compact if fn_name == "compact_masked" else slots)
+        real_frame = fusionutils._append_frame
+
+        def append_frame(*args):
+            out, calls = self._counted(lambda: real_frame(*args))
+            self.append_frames.append(calls)
+            return out
+
+        self._patch(fusionutils, "_append_frame", append_frame)
+        real_cumsum = torch.cumsum
+
+        def cumsum(x, *args, **kwargs):
+            self.cumsum += int(x.is_cuda)
+            return real_cumsum(x, *args, **kwargs)
+
+        self._patch(torch, "cumsum", cumsum)
+
+    def _patch(self, mod, name, fn):
+        self.patched.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, fn)
+
+    @staticmethod
+    def _counted(fn):
+        from gradslam_tpu_torch.ops import mask_scan_kernel
+
+        before = mask_scan_kernel.launches
+        out = fn()
+        return out, mask_scan_kernel.launches - before
+
+    def _call(self, site, mask, out_size, num_points, fn):
+        out, calls = self._counted(fn)
+        key = (site, tuple(mask.shape), out_size)
+        self.calls.append((key, calls))
+        self.masks[key] = (mask.detach().bool().contiguous().clone(),
+                           None if num_points is None else num_points.clone())
+        return out
+
+    def close(self):
+        for mod, name, real in reversed(self.patched):
+            setattr(mod, name, real)
+
+    def sites(self):
+        """{(site, shape, out_size): calls}."""
+        out = {}
+        for key, _ in self.calls:
+            out[key] = out.get(key, 0) + 1
+        return out
+
+
+def _scan_calls(fn):
+    """(result, the mask scan's kernel calls) of ``fn()``: its counter set
+    to 0 just before, read after a synchronization."""
+    from gradslam_tpu_torch.ops import mask_scan_kernel
+
+    torch.cuda.synchronize()
+    mask_scan_kernel.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, mask_scan_kernel.launches
+
+
+def _scan_path(name, run, graphed=True, sites=()):
+    """``run()`` op by op under the tap, then (``graphed``) twice more
+    through its graphs: every tapped call one kernel call, every
+    ``_append_frame`` one (the append's slots reused for the model image),
+    no ``torch.cumsum`` on the card, the ``sites`` reached, and the graphed
+    runs' kernel calls (counted at capture, added at each replay) the
+    eager run's. Returns ({site: calls}, eager calls, graphed calls, masks)."""
+    tap = _ScanTap()
+    try:
+        with _eager():
+            _, eager = _scan_calls(run)
+    finally:
+        tap.close()
+    graphed_calls = [_scan_calls(run)[1] for _ in range(2)] if graphed else []
+    if graphed:  # once more under the profiler: each counted call two kernels on the device
+        _profiled(f"scan path {name}", run)
+    found = tap.sites()
+    _log(f"scan path {name}: {eager} kernel calls op by op, graphed {graphed_calls}; torch.cumsum on the card "
+         f"{tap.cumsum}; _append_frame calls {len(tap.append_frames)}; by site " +
+         ", ".join(f"{s} {shape}->{o} x{n}" for (s, shape, o), n in found.items()))
+    _check(all(d == 1 for _, d in tap.calls), f"scan path {name}: a call of {[d for _, d in tap.calls]}")
+    _check(all(d == 1 for d in tap.append_frames), f"scan path {name}: _append_frame {tap.append_frames}")
+    _check(tap.cumsum == 0, f"scan path {name}: {tap.cumsum} torch.cumsum calls on the card")
+    reached = {s for s, _, _ in found}
+    _check(set(sites) <= reached, f"scan path {name}: sites {sorted(reached)}, expected {sorted(sites)}")
+    _check(eager == len(tap.calls) and all(g == eager for g in graphed_calls),
+           f"scan path {name}: {eager} calls op by op ({len(tap.calls)} tapped), graphed {graphed_calls}")
+    return found, eager, graphed_calls, tap.masks
+
+
+def scan_paths(dev):
+    """Every path of the cells and the other callers, each with its kernel
+    calls: ``slam_sequence`` at seq64's geometry and arena (L=8), the online
+    session's ``init_state`` / ``step_state`` (B=1, 100*H*W rows), the
+    training step (train16's arena, L=4), block gating, the lifecycle's
+    compaction and refresh and ``append_rows_to_map``. Returns ({path:
+    calls}, the masks the paths compacted, by site and shape)."""
+    from gradslam_tpu_torch import PointFusion, RGBDImages, clear_graphs, value_and_grad
+    from gradslam_tpu_torch.parallel import DepthCalibParams, slam_loss
+    from gradslam_tpu_torch.slam import slam_sequence
+    from gradslam_tpu_torch.slam.lifecycle import compact_slam_state
+    from gradslam_tpu_torch.structures import append_rows_to_map
+
+    colors, depths, K = _scannet_clip(8)
+    B, L, H, W = colors.shape[:4]
+    rgb, depth, Kt = (torch.from_numpy(x).to(dev) for x in (colors, depths, K))
+    opts = PointFusion(device=dev).opts
+    calls, masks = {}, {}
+
+    def record(name, found, eager, graphed, m):
+        calls[name] = {"op by op": eager, "graphed": graphed, "sites": {f"{s} {sh}->{o}": n
+                                                                         for (s, sh, o), n in found.items()}}
+        masks.update(m)
+
+    seq = lambda: slam_sequence(rgb, depth, Kt, None, opts, 64 * H * W)  # noqa: E731
+    record(SCAN_SEQ, *_scan_path(
+        "seq", seq, sites=("mapshard.compact_masked", "icpslam.compact_masked", "fusionutils.append_slots")))
+    slam = PointFusion(device=dev)
+    frames = [RGBDImages(colors[:1, t:t + 1], depths[:1, t:t + 1], K[:1], device=dev) for t in range(5)]
+
+    def online():
+        state = slam.init_state(frames[0])
+        for f in frames[1:]:
+            state = slam.step_state(state, f)
+        return state.pose
+
+    record("init_state + 4 step_state online geometry", *_scan_path(
+        "online", online, sites=("mapshard.compact_masked", "fusionutils.append_slots")))
+    T = 4
+    tr_rgb, _, obs, tr_K = _calib_inputs(colors[:, :T], depths[:, :T], K, dev)
+    gt = torch.from_numpy(_cycled_poses(T)).to(dev)
+    params = DepthCalibParams(device=dev)
+    vg = value_and_grad(slam_loss)
+    record("training step train16 arena L=4", *_scan_path(
+        "train", lambda: vg(params, tr_rgb, obs, tr_K, gt, opts, 16 * H * W),
+        sites=("mapshard.compact_masked", "fusionutils.append_slots")))
+    gated = PointFusion(device=dev, block_size=4096)
+    rgbd = RGBDImages(colors[:, :4], depths[:, :4], K, device=dev)
+    record("block-gated PointFusion L=4", *_scan_path(
+        "gated", lambda: gated(rgbd), sites=("fusionutils.compact_masked", "fusionutils.append_slots")))
+    clear_graphs()
+    with _eager():
+        state, _ = _eager_loop(rgb[:, :4], depth[:, :4], Kt, opts, 16 * H * W)
+
+    def lifecycle():
+        out = compact_slam_state(state, Kt, opts, H, W, policy="evict", min_ccount=1.5)
+        rows, valid = state.map_state.data[:, :H * W], depth[:, 0].reshape(B, -1) > 0
+        return out, append_rows_to_map(out.map_state, rows, valid)
+
+    record("compact_slam_state (evict), append_rows_to_map", *_scan_path(
+        "lifecycle", lifecycle, graphed=False,
+        sites=("lifecycle.compact_masked", "maparena.compact_masked", "maparena.append_slots")))
+    clear_graphs()
+    return calls, masks
+
+
+def scan_phase(dev, smi):
+    """Phase 35: the mask scan kernel against its plain version at the main
+    path's shapes, both epilogues; timed there; every path's kernel calls
+    (``scan_paths``); the masks the paths compacted, bit-equal and timed.
+    Returns the kernel's entry."""
+    t0 = time.perf_counter()
+    for i, (name, (B, N, out_size, share)) in enumerate(SCAN_SHAPES.items()):
+        mask, num_points = _scan_mask(dev, B, N, share, seed=i)
+        _scan_equal(name, mask, num_points, out_size)
+        _scan_equal(f"{name} slots", mask, num_points, None)
+    _log(f"scan kernel: {len(SCAN_SHAPES)} main path shapes, both epilogues bit-equal to the plain version (edge "
+         f"cases: tests/test_torch_cuda.py -k mask_scan)")
+    timings = {}
+    for i, (name, (B, N, out_size, share)) in enumerate(SCAN_SHAPES.items()):
+        mask, num_points = _scan_mask(dev, B, N, share, seed=100 + i)
+        timings[name] = _time_scan(name, mask, num_points, out_size)
+    calls, masks = scan_paths(dev)
+    for (site, shape, out_size), (mask, num_points) in masks.items():
+        key = f"main path {site} {shape}->{out_size}"
+        _scan_equal(key, mask, num_points, out_size)
+        if shape[1] >= 76_800:
+            timings[key] = _time_scan(key, mask, num_points, out_size)
+    _log(f"scan phase: {time.perf_counter() - t0:.1f} s on {smi}")
+    # launches: the graphed run of seq64's path, as the other kernels' count
+    # one run of the path they are timed for
+    return {"kernel": "mask_scan", "timings_ms": timings, "launches_by_path": calls,
+            "launches": calls[SCAN_SEQ]["graphed"][0]}
+
+
 def _build_kernels():
     """Builds every kernel's source at once (one nvcc each) and loads them."""
-    kernels = _kernels()
+    from gradslam_tpu_torch.ops import mask_scan_kernel
+
+    kernels = [*_kernels().values(), mask_scan_kernel]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels)) as ex:
-        list(ex.map(lambda k: k.load(), kernels.values()))
-    _log(f"built {', '.join(k.source for k in kernels.values())} in {time.perf_counter() - t0:.3f} s")
+        list(ex.map(lambda k: k.load(), kernels))
+    _log(f"built {', '.join(k.source for k in kernels)} in {time.perf_counter() - t0:.3f} s")
 
 
 def main() -> int:
+    # Kineto logs its count of the device records a trace dropped at INFO;
+    # the level holds from the process's first trace on (``_profiled``)
+    os.environ.setdefault("KINETO_LOG_LEVEL", "1")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -4232,6 +4609,7 @@ def main() -> int:
     by_path.update(graph_phase(dev, smi))
     by_path.update(train_graph_phase(dev, smi, cpu_grads, eager_scale, compacted_cpu_grad))
     by_path.update(closure_graph_phase(dev, smi))
+    scan_entry = scan_phase(dev, smi)
     for name, entry in entries.items():
         # launches: the ScanNet geometry's run of the path each kernel is
         # timed for; every path's count beside it
@@ -4239,7 +4617,7 @@ def main() -> int:
         entry["launches_by_path"] = {path: counts[name] for path, counts in by_path.items()}
     _log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     _log(f"{smi}")
-    print(json.dumps({"kernels": list(entries.values())}))
+    print(json.dumps({"kernels": list(entries.values()) + [scan_entry]}))
     print(json.dumps({
         "ok": True,
         "device": {

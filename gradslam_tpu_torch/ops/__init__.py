@@ -1,5 +1,11 @@
 from .knn import KnnTargets, knn, knn_kernel, knn_reference, prepare_targets
-from .masking import compact_masked
+from .masking import (
+    append_slots,
+    append_slots_reference,
+    compact_masked,
+    compact_masked_reference,
+    mask_scan_kernel,
+)
 from .voxel import voxel_merge, voxel_merge_rows
 from .winner import (
     pixel_winner,
@@ -16,6 +22,10 @@ __all__ = [
     "prepare_targets",
     "KnnTargets",
     "compact_masked",
+    "compact_masked_reference",
+    "append_slots",
+    "append_slots_reference",
+    "mask_scan_kernel",
     "pixel_winner",
     "pixel_winner_reference",
     "winner_kernel",

@@ -122,6 +122,7 @@ class _KnnKernel:
     checks its inputs, launches it on the current stream and counts its
     launches in :attr:`launches`."""
 
+    name = "knn"
     source = "knn.cu"
 
     def __init__(self):

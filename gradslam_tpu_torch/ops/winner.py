@@ -157,6 +157,7 @@ class _WinnerKernel:
     launches (one per selection) in :attr:`launches`. Each call allocates
     only its output; the key tables, two a stream, are kept across calls."""
 
+    name = "winner"
     source = "winner.cu"
 
     def __init__(self):

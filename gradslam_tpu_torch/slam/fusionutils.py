@@ -29,7 +29,7 @@ from typing import NamedTuple, Optional, Union
 import torch
 
 from ..geometry import inverse_transformation, project_points_to_pixels, transform_pointcloud
-from ..ops.masking import compact_masked
+from ..ops.masking import append_slots, compact_masked
 from ..ops.winner import pixel_winner, winner_keys
 from ..structures.maparena import (
     MapState,
@@ -460,10 +460,11 @@ def _append_frame(map_state, data, frame_attr, valid_depth, model_img, win_rows,
     # appended points carry their frame label at confidence alpha
     tail = frame_attr[..., 9:10] if frame_attr.shape[-1] > 10 else frame_attr.new_zeros((B, HW, 2))
     frame_rows = torch.cat([frame_attr, tail], dim=-1)
-    out = shard.append_rows(MapState(data, map_state.num_points), frame_rows, new_mask)
+    appended = append_slots(map_state.num_points, new_mask)
+    out = shard.append_rows(MapState(data, map_state.num_points), frame_rows, new_mask, appended)
     if not return_active:
         return out
-    app_slot = map_state.num_points[:, None] + torch.cumsum(new_mask, dim=1, dtype=torch.int32) - 1
+    app_slot = appended[0]
     app_valid = new_mask & (app_slot < CAP)
     img = torch.where(app_valid, app_slot, model_img)
     if not dense_model_rows:
@@ -632,7 +633,8 @@ def aggregate_map_dense(
         rows = pack_rows(gv, gn, rgb, alpha)
     if shard is None:
         shard = MapShard.whole(map_state.capacity)
-    return shard.append_rows(map_state, rows, valid_depth.reshape(B, HW))
+    mask = valid_depth.reshape(B, HW)
+    return shard.append_rows(map_state, rows, mask, append_slots(map_state.num_points, mask))
 
 
 # ---------------------------------------------------------------------------

@@ -235,15 +235,15 @@ class MapShard:
         has = has & (lo == best_lo)
         return self.all_reduce(torch.where(has, wslots, self.capacity), dist.ReduceOp.MIN)
 
-    def append_rows(self, state: MapState, new_rows: torch.Tensor, new_mask: torch.Tensor) -> MapState:
+    def append_rows(self, state: MapState, new_rows: torch.Tensor, new_mask: torch.Tensor, appended) -> MapState:
         """:func:`~gradslam_tpu_torch.structures.maparena.append_rows_to_map`
         on the global arena: the selected rows go, in order, to the global
         slots ``num_points + cumsum(mask) - 1`` below ``capacity``; this rank
-        writes those in its range."""
+        writes those in its range. ``appended`` is
+        ``append_slots(state.num_points, new_mask)``: the slots and the
+        count, which the caller computes and may use again."""
         new_mask = new_mask.bool()
-        mask_i = new_mask.to(torch.int32)
-        slots = state.num_points.long()[:, None] + torch.cumsum(mask_i, dim=1) - 1
+        slots, n_added = appended
         keep = new_mask & (slots < self.capacity) & self.owns(slots)
         data = scatter_rows(state.data, self.local(slots), new_rows, keep)
-        n_added = mask_i.sum(dim=1, dtype=torch.int32)
         return MapState(data=data, num_points=torch.clamp(state.num_points + n_added, max=self.capacity))

@@ -57,8 +57,8 @@ step's warm-up runs its backward there too (autograd runs each backward op
 on its forward op's stream). The next step captures (a capture runs no
 work) and replays. Each graph records its kernels' launch counts while it
 is captured and adds them to the wrappers' counters at every replay, so a
-run counts the launches of the eager run (a backward launches neither
-kernel).
+run counts the launches of the eager run (a backward launches none of
+the kernels).
 
 The JAX package also jits its loop closure and its refiners, each a
 ``fori_loop`` of small ops: :func:`graphed` captures such a function of
@@ -96,6 +96,7 @@ import torch
 import torch.distributed as dist
 
 from ..ops.knn import knn_kernel
+from ..ops.masking import mask_scan_kernel
 from ..ops.winner import winner_kernel
 from ..structures.maparena import MapState
 from ..utils.profiling import span
@@ -119,7 +120,7 @@ __all__ = [
 ]
 
 # the wrappers whose launch counts a replay adds to
-_KERNELS = (knn_kernel, winner_kernel)
+_KERNELS = (knn_kernel, winner_kernel, mask_scan_kernel)
 
 # captured steps a cache keeps (the ones used last)
 MAX_GRAPHS = 4
@@ -342,10 +343,11 @@ class _Graph:
 
     @property
     def launches(self):
-        """Kernel launches per replay, ``{"knn": n, "winner": n}`` (None
-        before the capture)."""
+        """Kernel calls per replay, one entry a counted wrapper by its name,
+        ``{"knn": n, "winner": n, "mask_scan": n}`` (None before the
+        capture)."""
         n = self._run.launches
-        return None if n is None else dict(zip(("knn", "winner"), n))
+        return None if n is None else {k.name: c for k, c in zip(_KERNELS, n)}
 
 
 class StepGraph(_Graph):

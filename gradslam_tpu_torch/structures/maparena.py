@@ -15,6 +15,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..ops.masking import append_slots, compact_masked
+
 __all__ = [
     "MapState",
     "pack_rows",
@@ -147,10 +149,8 @@ def append_rows_to_map(
     """
     cap = state.capacity
     new_mask = new_mask.bool()
-    mask_i = new_mask.to(torch.int32)
-    slots = state.num_points.long()[:, None] + torch.cumsum(mask_i, dim=1) - 1
+    slots, n_added = append_slots(state.num_points, new_mask)
     data = scatter_rows(state.data, slots, new_rows, new_mask & (slots < cap))
-    n_added = mask_i.sum(dim=1, dtype=torch.int32)
     return MapState(data=data, num_points=torch.clamp(state.num_points + n_added, max=cap))
 
 
@@ -164,8 +164,6 @@ def compact_map(state: MapState, min_ccount: float = 0.0, keep_recent: int = 0) 
     """Defragments the arena, evicting points with ``ccounts < min_ccount``
     except the ``keep_recent`` most recently appended; survivors keep their
     order at the front of the arena."""
-    from ..ops.masking import compact_masked
-
     cap = state.capacity
     live = map_mask(state)
     idx = torch.arange(cap, dtype=torch.int32, device=state.data.device)[None, :]

@@ -21,14 +21,20 @@ import torch
 
 from gradslam_tpu_torch import PointFusion, RGBDImages, clear_graphs, disable_graphs
 from gradslam_tpu_torch.ops import (
+    append_slots,
+    append_slots_reference,
+    compact_masked,
+    compact_masked_reference,
     knn,
     knn_kernel,
     knn_reference,
+    mask_scan_kernel,
     pixel_winner,
     pixel_winner_reference,
     winner_keys,
     winner_kernel,
 )
+from tests.mask_cases import MASK_EDGES, mask_case
 
 DATA = pathlib.Path(__file__).parent / "data" / "msrd_b2s3"
 
@@ -287,6 +293,109 @@ def test_winner_kernel_rejects_what_it_does_not_take(cuda_device):
         winner_kernel(x, x, x, x[:, ::2], 4, 8)
     with pytest.raises(ValueError):
         winner_kernel(x, x, x, x.cpu(), 4, 8)
+
+
+# the main path's shapes: arena-wide compaction (seq64's arena, past
+# out_size; the online session's, inside it), the odometry targets over
+# the carried active set, a frame's appends (out_size None: slots) and
+# compact_map's whole arena
+MASK_MAIN_PATH = {
+    "arena seq64": (2, 4_915_200, 153_600, 0.05),
+    "arena online": (1, 7_680_000, 153_600, 0.015),
+    "odometry targets": (2, 230_400, 19_456, 0.1),
+    "appends": (2, 76_800, None, 0.4),
+    "compact_map": (2, 1_228_800, 1_228_800, 0.6),
+}
+
+
+def _mask_scan_equal(mask, num_points, out_size):
+    """The kernel (through the public functions) against the plain versions:
+    bit-equal, one call each."""
+    before = mask_scan_kernel.launches
+    if out_size is None:
+        got, want = append_slots(num_points, mask), append_slots_reference(num_points, mask)
+    else:
+        got, want = compact_masked(mask, out_size), compact_masked_reference(mask, out_size)
+    assert mask_scan_kernel.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("case", list(MASK_MAIN_PATH) + list(MASK_EDGES))
+def test_mask_scan_kernel_equals_plain_version(cuda_device, case):
+    B, N, out_size, share = {**MASK_MAIN_PATH, **MASK_EDGES}[case]
+    mask, num_points = mask_case(B, N, share, seed=N + B)
+    mask = torch.from_numpy(mask).to(cuda_device)
+    num_points = torch.from_numpy(num_points).to(cuda_device)
+    _mask_scan_equal(mask, num_points, out_size)
+    if out_size is not None:
+        _mask_scan_equal(mask, num_points, None)
+
+
+@pytest.mark.parametrize("out_size", [30_000, 300_000])
+def test_mask_scan_kernel_counts_equal_plain_version(cuda_device, out_size):
+    """The wrapper's own outputs across many tiles: the indices, and the
+    row counts (cut at ``out_size``) that the last tile of a row writes."""
+    mask, num_points = mask_case(3, 100_003, 0.5, seed=out_size)
+    mask = torch.from_numpy(mask).to(cuda_device)
+    num_points = torch.from_numpy(num_points).to(cuda_device)
+    idx, count = mask_scan_kernel.compact(mask, out_size)
+    want_idx, want_valid = compact_masked_reference(mask, out_size)
+    assert torch.equal(idx, want_idx) and torch.equal(count, want_valid.sum(dim=1, dtype=torch.int32))
+    slots, count = mask_scan_kernel.slots(mask, num_points)
+    assert all(torch.equal(g, w) for g, w in zip((slots, count), append_slots_reference(num_points, mask)))
+
+
+def test_mask_scan_kernel_at_a_misaligned_row_start(cuda_device):
+    """A contiguous mask whose rows start off a 16-byte boundary takes the
+    byte loads: row 0 at an odd address, rows 1.. at ragged ones."""
+    mask, num_points = mask_case(2, 30_001, 0.5, seed=5)
+    flat = torch.zeros(mask.size + 1, dtype=torch.bool, device=cuda_device)
+    flat[1:] = torch.from_numpy(mask.reshape(-1)).to(cuda_device)
+    shifted = flat[1:].view(mask.shape)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    _mask_scan_equal(shifted, torch.from_numpy(num_points).to(cuda_device), 20_000)
+    _mask_scan_equal(shifted, torch.from_numpy(num_points).to(cuda_device), None)
+
+
+def test_mask_scan_kernel_in_a_captured_graph(cuda_device):
+    """Both epilogues captured into one CUDA graph and replayed twice on new
+    masks: each replay equal to the plain version; the capture counts its
+    two calls, a replay (outside the port's graphs) none."""
+    B, N = 2, 230_400
+    static = torch.zeros((B, N), dtype=torch.bool, device=cuda_device)
+    num_points = torch.full((B,), 7, dtype=torch.int32, device=cuda_device)
+    compact_masked(static, 19_456), append_slots(num_points, static)  # build, load, warm the allocator
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = mask_scan_kernel.launches
+    with torch.cuda.graph(graph):
+        out = compact_masked(static, 19_456) + append_slots(num_points, static)
+    assert mask_scan_kernel.launches == before + 2
+    for seed in (1, 2):
+        static.copy_(torch.from_numpy(mask_case(B, N, 0.1, seed)[0]).to(cuda_device))
+        graph.replay()
+        want = compact_masked_reference(static, 19_456) + append_slots_reference(num_points, static)
+        assert all(torch.equal(g, w) for g, w in zip(out, want))
+
+
+def test_mask_scan_kernel_rejects_what_it_does_not_take(cuda_device):
+    mask = torch.zeros((2, 64), dtype=torch.bool, device=cuda_device)
+    num_points = torch.zeros((2,), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(TypeError):
+        mask_scan_kernel.compact(mask.to(torch.uint8), 8)
+    with pytest.raises(ValueError):
+        mask_scan_kernel.compact(mask[:, ::2], 8)
+    with pytest.raises(ValueError):
+        mask_scan_kernel.compact(mask.cpu(), 8)
+    with pytest.raises(ValueError):
+        mask_scan_kernel.slots(mask, num_points.cpu())
+    with pytest.raises(TypeError):
+        mask_scan_kernel.slots(mask, num_points.long())
+    with pytest.raises(ValueError):
+        mask_scan_kernel.compact(mask[None], 8)
+    with pytest.raises(ValueError):
+        mask_scan_kernel.compact(mask, -1)
 
 
 def _clip():
@@ -982,7 +1091,7 @@ def test_training_graph_equals_the_eager_step(cuda_device):
         eager = [_counted(lambda: vg(params, *args)) for _ in range(3)]
     graphed = [_counted(lambda: vg(params, *args)) for _ in range(3)]
     (graph,) = vg.graphs.graphs.values()
-    assert isinstance(graph, GradGraph) and graph.launches == {"knn": 80, "winner": 3}
+    assert isinstance(graph, GradGraph) and graph.launches == {"knn": 80, "winner": 3, "mask_scan": 8}
     assert all(n == (80, 3) for _, n in eager + graphed)
     loss0 = eager[0][0][0]
     assert all(torch.equal(out[0], loss0) for out, _ in eager + graphed)
@@ -1152,7 +1261,7 @@ def test_closure_graph_equals_the_eager_call(cuda_device, name):
         for x, y in zip(_flat(out), _flat(ref)):
             assert x.shape == y.shape and torch.equal(x, y)
     (graph,) = stepgraph._CLOSURES.graphs.values()
-    assert graph.capture_s is not None and graph.launches == {"knn": knn_launches, "winner": 0}
+    assert graph.capture_s is not None and graph.launches == {"knn": knn_launches, "winner": 0, "mask_scan": 0}
     clear_graphs()
 
 

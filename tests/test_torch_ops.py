@@ -1,6 +1,7 @@
 """gradslam_tpu_torch.ops against gradslam_tpu.ops.
 
-``compact_masked`` must equal both JAX methods exactly. The plain KNN must
+``compact_masked`` must equal both JAX methods exactly, and its plain
+version and ``append_slots``' numpy. The plain KNN must
 give the JAX plain KNN's indices and distances exactly: both compute
 ``(dx*dx + dy*dy) + dz*dz`` with one rounding per operation and take the
 first minimum. The CUDA kernel against the plain version needs the card:
@@ -22,12 +23,17 @@ from gradslam_tpu_torch import PointFusion, RGBDImages
 from gradslam_tpu_torch.odometry import icputils
 from gradslam_tpu_torch.ops import (
     KnnTargets,
+    append_slots,
+    append_slots_reference,
     compact_masked,
+    compact_masked_reference,
     knn,
     knn_kernel,
     knn_reference,
+    mask_scan_kernel,
     prepare_targets,
 )
+from tests.mask_cases import MASK_EDGES, mask_case
 
 torch.set_num_threads(2)
 
@@ -51,6 +57,45 @@ def test_compact_masked_equals_both_jax_methods(N, out_size, density):
     first = [np.flatnonzero(m)[:out_size] for m in mask]
     for b in range(3):
         np.testing.assert_array_equal(idx_t[b, : len(first[b])].numpy(), first[b])
+
+
+def _numpy_compact(mask, out_size):
+    idx = np.zeros((mask.shape[0], out_size), np.int32)
+    valid = np.zeros((mask.shape[0], out_size), bool)
+    for b, row in enumerate(mask):
+        sel = np.flatnonzero(row)[:out_size]
+        idx[b, : len(sel)], valid[b, : len(sel)] = sel, True
+    return idx, valid
+
+
+@pytest.mark.parametrize("case", list(MASK_EDGES))
+def test_mask_scan_plain_versions_equal_numpy(case):
+    """The plain compaction and slots, which the card tests hold the scan
+    kernel to, against numpy: the first ``out_size`` selected positions,
+    and ``num_points + cumsum(mask) - 1`` with the selected count."""
+    B, N, out_size, share = MASK_EDGES[case]
+    mask, num_points = mask_case(B, N, share, seed=N + B)
+    want_idx, want_valid = _numpy_compact(mask, out_size)
+    for fn in (compact_masked_reference, compact_masked):
+        idx, valid = fn(torch.from_numpy(mask), out_size)
+        assert idx.dtype == torch.int32 and valid.dtype == torch.bool
+        np.testing.assert_array_equal(idx.numpy(), want_idx)
+        np.testing.assert_array_equal(valid.numpy(), want_valid)
+    for fn in (append_slots_reference, append_slots):
+        slots, count = fn(torch.from_numpy(num_points), torch.from_numpy(mask))
+        assert slots.dtype == torch.int32 and count.dtype == torch.int32
+        np.testing.assert_array_equal(slots.numpy(), num_points[:, None] + np.cumsum(mask, axis=1) - 1)
+        np.testing.assert_array_equal(count.numpy(), mask.sum(axis=1))
+
+
+def test_mask_scan_cpu_tensors_never_launch_the_kernel():
+    mask, num_points = mask_case(2, 5000, 0.5, seed=3)
+    before = mask_scan_kernel.launches
+    compact_masked(torch.from_numpy(mask), 100)
+    append_slots(torch.from_numpy(num_points), torch.from_numpy(mask))
+    assert mask_scan_kernel.launches == before
+    with pytest.raises(ValueError):  # the kernel itself takes a CUDA mask only
+        mask_scan_kernel.compact(torch.from_numpy(mask), 100)
 
 
 def _knn_pair(src, tgt, valid=None):
