@@ -16,7 +16,10 @@
   X(odometry) X(odometry__backward)                                        \
   X(odometry__targets) X(odometry__targets__backward)                      \
   X(mapping) X(mapping__backward)                                          \
-  X(carry) X(carry__backward)
+  X(carry) X(carry__backward)                                              \
+  X(loop_closure) X(loop_closure__backward)                                \
+  X(loop_closure__verify) X(loop_closure__verify__backward)                \
+  X(loop_closure__pose_graph) X(loop_closure__pose_graph__backward)
 
 #define GS_DEFINE(n)                                 \
   extern "C" __global__ void gs_span_begin_##n() {}  \

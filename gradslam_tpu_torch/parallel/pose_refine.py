@@ -38,6 +38,7 @@ from torch.func import jvp, vmap
 
 from ..geometry import inverse_transformation, se3_exp, se3_log
 from ..geometry.projutils import matmul_small, matvec
+from ..utils.profiling import spanned
 
 __all__ = [
     "PoseGraph",
@@ -345,6 +346,7 @@ def pose_graph_refine(
                    anchor_weight=anchor_weight)
 
 
+@spanned("loop_closure.pose_graph")
 def _pose_graph_refine(poses, edges, measurements, weights, num_iters, damping, anchor_weight):
     g, single = _batched(PoseGraph(poses, edges, measurements, weights))
     poses = _pose_graph_iterations(g, g.poses, num_iters, damping, anchor_weight)

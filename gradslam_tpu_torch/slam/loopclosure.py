@@ -26,10 +26,16 @@ the pose graph, and :func:`detect_loop_closures`,
 :func:`verify_loop_closures` runs eagerly on its own (the JAX package does
 not jit it at top level). Constants are made on the device by a fill, never
 copied from the host: a capture refuses a copy from pageable memory.
+
+On a card a closure marks its device work (``utils/profiling.py``): the span
+``loop_closure`` over the whole of it, ``loop_closure.verify`` over each
+detector's batched gradICP and inlier KNN, ``loop_closure.pose_graph`` over
+the pose graph; the marks are captured into the closure's graph.
 """
 
 from __future__ import annotations
 
+import inspect
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -39,6 +45,7 @@ from ..geometry.projutils import matmul_small
 from ..odometry.icputils import point_to_plane_gradICP
 from ..ops.knn import knn
 from ..parallel.pose_refine import PoseGraph, pose_graph_refine
+from ..utils.profiling import spanned
 from .stepgraph import graphed
 
 __all__ = [
@@ -419,13 +426,7 @@ def verify_loop_closures(
     tgt_n = expand(frame_normals[i])
     tgt_valid = expand(frame_valid[i])
 
-    Z = point_to_plane_gradICP(
-        src, tgt, tgt_n, Z0, numiters=numiters, dist_thresh=dist_thresh,
-        src_valid=src_valid.to(src.dtype), tgt_valid=tgt_valid,
-    )  # (K*H, 4, 4)
-
-    # inlier scoring: nearest-neighbour distances of the aligned sources
-    sq_d, _ = knn(transform_pointcloud(src, Z), tgt, tgt_valid)
+    Z, sq_d = _align(src, tgt, tgt_n, Z0, src_valid, tgt_valid, numiters, dist_thresh)
     inlier = (sq_d < inlier_dist**2) & src_valid & torch.isfinite(sq_d)
     n_valid = torch.clamp(src_valid.sum(-1), min=1)
     frac = inlier.sum(-1).to(dtype) / n_valid.to(dtype)  # (K*H,)
@@ -440,6 +441,19 @@ def verify_loop_closures(
 
     accept = (frac >= min_inlier_frac) & candidates.valid
     return Z, accept.to(dtype)
+
+
+@spanned("loop_closure.verify")
+def _align(src, tgt, tgt_n, Z0, src_valid, tgt_valid, numiters, dist_thresh):
+    """The batched gradICP solve of a candidate set from its seeds ``Z0``
+    and the squared distance of each aligned source to its nearest target
+    (the inlier scoring's KNN): (Z (K*H, 4, 4), sq_d (K*H, N))."""
+    Z = point_to_plane_gradICP(
+        src, tgt, tgt_n, Z0, numiters=numiters, dist_thresh=dist_thresh,
+        src_valid=src_valid.to(src.dtype), tgt_valid=tgt_valid,
+    )
+    sq_d, _ = knn(transform_pointcloud(src, Z), tgt, tgt_valid)
+    return Z, sq_d
 
 
 def _check_detection(detection, descriptors):
@@ -595,10 +609,16 @@ def close_loops_batched(
     )
 
 
-def _close_loops_batched(poses, frame_points, frame_normals, frame_valid, descriptors, max_candidates,
-                         min_separation, max_distance, max_angle, icp_numiters, inlier_dist, min_inlier_frac,
-                         refine_iters, odometry_weight, loop_weight, detection, max_descriptor_dist,
-                         appearance_init):
+@spanned("loop_closure")
+def _close_loops_batched(*tensors, **static):
+    return _closure(*tensors, **static)
+
+
+def _closure(poses, frame_points, frame_normals, frame_valid, descriptors, max_candidates, min_separation,
+             max_distance, max_angle, icp_numiters, inlier_dist, min_inlier_frac, refine_iters, odometry_weight,
+             loop_weight, detection, max_descriptor_dist, appearance_init):
+    """:func:`close_loops_batched`'s stages, unspanned: both entries reach
+    them inside their own ``loop_closure`` span."""
     B, L = poses.shape[:2]
     N = frame_points.shape[2]
     sets = _candidate_sets(poses, descriptors, detection, max_candidates, min_separation, max_distance, max_angle,
@@ -681,17 +701,26 @@ def close_loops_rgbd(
     if descriptor not in ("invariant", "grid"):
         raise ValueError(f"descriptor must be 'invariant' or 'grid', got {descriptor!r}")
     return graphed("close_loops_rgbd", _close_loops_rgbd, (depth_seq, intrinsics, poses), dsratio=dsratio,
-                   descriptor=descriptor, **kwargs)
+                   descriptor=descriptor, **_batched_options(kwargs))
 
 
+@spanned("loop_closure")
 def _close_loops_rgbd(depth_seq, intrinsics, poses, dsratio, descriptor, **kwargs):
     pts, nrm, val, nm, valid = frame_clouds_from_rgbd(depth_seq, intrinsics, dsratio)
     descs = None
-    if kwargs.get("detection", "pose") in ("appearance", "both"):
+    if kwargs["detection"] in ("appearance", "both"):
         if descriptor == "invariant":
             descs = keyframe_descriptors_invariant(pts, nrm, val)
         else:
             descs = keyframe_descriptors(depth_seq[..., 0], nm, valid[..., 0])
-    refined, _, _ = close_loops_batched(poses, pts, nrm, val, **({} if descs is None else {"descriptors": descs}),
-                                        **kwargs)
+    _check_detection(kwargs["detection"], descs)
+    refined, _, _ = _closure(poses, pts, nrm, val, descs, **kwargs)
     return refined
+
+
+def _batched_options(kwargs: dict) -> dict:
+    """:func:`close_loops_batched`'s static arguments: its defaults, with
+    ``kwargs`` over them (an unknown name raises TypeError)."""
+    bound = inspect.signature(close_loops_batched).bind_partial(**kwargs)
+    bound.apply_defaults()
+    return {k: v for k, v in bound.arguments.items() if k != "descriptors"}

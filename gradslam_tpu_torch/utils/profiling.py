@@ -29,6 +29,11 @@ The spans (:data:`SPANS`, the one table of their names):
   targets' projection and compaction, up to the rows gathered; none inside
   ICP's iterations), ``mapping`` (``_map_update``), ``carry``
   (``StepGraph``'s copy of the new state into its static carry);
+  ``loop_closure`` (a whole closure: ``_close_loops_rgbd``'s frame clouds
+  and descriptors, or ``_close_loops_batched`` alone, through the pose
+  graph) with its children ``loop_closure.verify`` (a detector's batched
+  gradICP solve and its inlier KNN) and ``loop_closure.pose_graph``
+  (``pose_graph_refine``'s iterations);
 - host only: ``slam_sequence``; ``step_state`` with ``step_state.handover``
   (state and frame into the static buffers), ``step_state.replay`` and
   ``step_state.copy_out`` (the caller's copy of the new state);
@@ -84,6 +89,9 @@ SPANS = {
     "odometry.targets": "the odometry targets' projection and compaction, up to the rows gathered",
     "mapping": "the frame fused or aggregated into the arena (_map_update)",
     "carry": "StepGraph's copy of the new state into its static carry",
+    "loop_closure": "a whole loop closure: frame clouds, descriptors, detection, verification, dedup, pose graph",
+    "loop_closure.verify": "a detector's batched gradICP verification and its inlier KNN",
+    "loop_closure.pose_graph": "the closure's pose-graph Gauss-Newton (pose_graph_refine)",
     "slam_sequence": "a whole sequence (slam_sequence)",
     "step_state": "one incremental step (ICPSLAM.step_state)",
     "step_state.handover": "state and frame copied into the step's static buffers",
@@ -105,7 +113,8 @@ SPANS = {
     "ba_refine": "bundle adjustment (graphed)",
 }
 # the spans that also mark the device, in the order of csrc/spans.cu's GS_SPANS
-DEVICE_SPANS = ("init_state", "odometry", "odometry.targets", "mapping", "carry")
+DEVICE_SPANS = ("init_state", "odometry", "odometry.targets", "mapping", "carry", "loop_closure",
+                "loop_closure.verify", "loop_closure.pose_graph")
 
 
 def mark_name(span_name: str, edge: str) -> str:

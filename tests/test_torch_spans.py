@@ -1,5 +1,5 @@
 """The port's spans (``gradslam_tpu_torch/utils/profiling.py``) and the
-benchmark's readers of them (``slam_bench/spans.py``, the six
+benchmark's readers of them (``slam_bench/spans.py``, the ten
 ``slam_bench/metrics`` files that read marks).
 
 On the CPU a span is a host range while a profiler runs and nothing else:
@@ -278,10 +278,39 @@ def test_backward_marks_split_the_training_step(clip, marked):
     torch.testing.assert_close((scale, bias), (scale2, bias2), rtol=1e-6, atol=0)
 
 
+def _closure_run(marks=True):
+    """ICP-SLAM with loop closure by both detectors over the golden clip
+    cycled to 8 frames: its poses."""
+    rgb, depth, K, _ = _clip(L=8)
+    slam = ICPSLAM(device="cpu", numiters=2, dsratio=2, loop_closure="both",
+                   loop_closure_kwargs=dict(min_separation=3, icp_numiters=2, dsratio=2, refine_iters=2))
+    with profiling.device_spans(marks):
+        return slam(RGBDImages(rgb, depth, K, device="cpu"))[1]
+
+
+def _closure_marks():
+    b = lambda n: profiling.mark_name(n, "begin")
+    e = lambda n: profiling.mark_name(n, "end")
+    return ([b("loop_closure")] + _begin_end("loop_closure.verify") * 2 + _begin_end("loop_closure.pose_graph")
+            + [e("loop_closure")])
+
+
+def test_closure_marks_nest_once_and_change_no_output(marked):
+    poses = _closure_run()
+    start = marked.index(profiling.mark_name("loop_closure", "begin"))
+    # close_loops_rgbd's closure, clouds to pose graph: one loop_closure span
+    assert marked[start:] == _closure_marks()
+    assert all(not m.startswith("gs_span_begin_loop") for m in marked[:start])
+    marked.clear()
+    assert torch.equal(poses, _closure_run(marks=False)) and marked == []
+
+
 # --- the benchmark's readers -------------------------------------------------
 
 READERS = ("odometry_ms_per_frame.seq", "odometry_targets_ms_per_frame.seq", "mapping_ms_per_frame.seq",
-           "forward_ms_per_step.train", "backward_ms_per_step.train", "step_idle_ms_per_frame.online")
+           "forward_ms_per_step.train", "backward_ms_per_step.train", "step_idle_ms_per_frame.online",
+           "closure_ms_per_sequence.loop", "closure_verify_ms_per_sequence.loop", "closure_knn_ms_per_sequence.loop",
+           "pose_graph_ms_per_sequence.loop")
 
 
 def _reader(name):
@@ -316,6 +345,19 @@ SEQ_OPS = _ops(
 )
 
 
+LOOP_OPS = _ops(
+    ("sequence graph", 0, 100),  # before the closure
+    _mk("loop_closure", "begin", 100), ("clouds", 101, 110),
+    _mk("loop_closure.verify", "begin", 110), ("knn_cluster", 111, 115), ("solve", 115, 120),
+    ("knn_cluster", 120, 124), _mk("loop_closure.verify", "end", 124),
+    ("dedup", 125, 127),
+    _mk("loop_closure.verify", "begin", 127), ("knn_cluster", 128, 140), _mk("loop_closure.verify", "end", 140),
+    _mk("loop_closure.pose_graph", "begin", 141), ("gauss-newton", 142, 150),
+    _mk("loop_closure.pose_graph", "end", 150), _mk("loop_closure", "end", 151),
+    ("knn_cluster", 160, 170),  # the next sequence's odometry
+)
+
+
 @pytest.mark.parametrize("name, driver, record, expected", [
     # odometry: 4 + 8 (the op that crosses the end mark is left out) + 2 (the second frame), over 2 frames
     ("odometry_ms_per_frame.seq", "sequence", dict(device_ops=SEQ_OPS, frames=2), 14 / 1e3 / 2),
@@ -337,10 +379,17 @@ SEQ_OPS = _ops(
                       ("step_state", 25, 35), ("bench.frame", 0, 40)), frame_steps=3),
      # init_state 2-10: 5 idle of 8; step_state 11-20: 1 + 2 idle; 25-35: 5 idle
      (5 + 3 + 5) / 1e3 / 3),
+    # 9 (clouds) + 13 (the first verify) + 2 + 12 + 8 (marks left out), over 2 sequences
+    ("closure_ms_per_sequence.loop", "loop_sequence", dict(device_ops=LOOP_OPS, sequences=2), 44 / 1e3 / 2),
+    ("closure_verify_ms_per_sequence.loop", "loop_sequence", dict(device_ops=LOOP_OPS, sequences=2),
+     (13 + 12) / 1e3 / 2),
+    # the KNN kernels inside the verify spans: 4 + 4 + 12; the odometry's after the closure left out
+    ("closure_knn_ms_per_sequence.loop", "loop_sequence", dict(device_ops=LOOP_OPS, sequences=1), 20 / 1e3),
+    ("pose_graph_ms_per_sequence.loop", "loop_sequence", dict(device_ops=LOOP_OPS, sequences=1), 8 / 1e3),
 ])
 def test_readers(name, driver, record, expected):
     read = _reader(name)
-    base = dict(device_ops=[], host_ops=[], frames=1, frame_steps=1, steps=1)
+    base = dict(device_ops=[], host_ops=[], frames=1, frame_steps=1, steps=1, sequences=1)
     got = read({**base, **record, "driver": driver})
     assert got == pytest.approx(expected, rel=1e-12)
     # another cell's trace, and the parent's trace with no mark or span in it
@@ -392,4 +441,26 @@ def test_a_replay_runs_the_marks_in_capture_order_and_changes_no_output(card):
     assert none == []
     for a, b in zip(stepgraph.state_tensors(with_marks), stepgraph.state_tensors(without)):
         assert (a is None and b is None) or torch.equal(a, b)
+    clear_graphs()
+
+
+@pytest.mark.cuda
+def test_a_closure_graph_replays_its_marks_and_changes_no_output(card):
+    rgb, depth, K, _ = (x.to(card) for x in _clip(L=30, stride=2))
+    frames = RGBDImages(rgb, depth, K, device=card)
+
+    def run(marks):
+        clear_graphs()
+        slam = ICPSLAM(odom_targets="recent", loop_closure="both", loop_closure_kwargs=dict(min_separation=10),
+                       device=card)
+        with profiling.device_spans(marks):  # frame 0 runs eagerly in every call
+            for _ in range(2):  # warm-up and capture of both graphs
+                slam(frames)
+            return _device_marks(lambda: slam(frames)[1])
+
+    poses, names = run(True)
+    closure = names[names.index(profiling.mark_name("loop_closure", "begin")):]
+    assert closure == _closure_marks()
+    without, none = run(False)
+    assert none == [] and torch.equal(poses, without)
     clear_graphs()

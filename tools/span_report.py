@@ -10,8 +10,9 @@ traced unit and prints one JSON object: each span's device milliseconds a
 unit and that of its scan kernels (``gs_span_*`` marks, forward and
 ``.backward``), the share of the unit's device busy time that the
 top-level spans cover (``init_state``, ``odometry``, ``mapping``,
-``carry``; a training step's forward and backward), the marks the device
-ran (their count, their device time, the order of one frame step's), the
+``carry``, ``loop_closure``; a training step's forward and backward), the
+marks the device ran (their count, their device time, the order of one
+frame step's), the
 host time inside each host span, the idle gaps by what the host was doing,
 and the cell's per-layer metrics as the benchmark reads them. With ``--equal`` it
 then drops the graphs, captures them again inside
@@ -79,7 +80,8 @@ def analyse(record: dict) -> dict:
         top = sum(v or 0.0 for v in parts.values())
     else:
         parts = None
-        top = _covered_inside(ops, [w for s in ("init_state", "odometry", "mapping", "carry") for w in _windows(ops, s)])
+        top = _covered_inside(ops, [w for s in ("init_state", "odometry", "mapping", "carry", "loop_closure")
+                                    for w in _windows(ops, s)])
     host = {}
     for n, s, e in record["host_ops"]:
         if n in profiling.SPANS:
@@ -122,8 +124,10 @@ def _equal(driver_name, driver, st) -> dict:
                 fn()
             return fn()
 
-    if driver_name == "sequence":
-        run = lambda: driver._one(st, 0)
+    if driver_name in ("sequence", "loop_sequence"):
+        from slam_bench.drivers.sequence import _one
+
+        run = lambda: _one(st, 0)
         a = run()
         b = again(run, 2)
         return {"poses": torch.equal(a[1], b[1]), "points": torch.equal(a[0].points_padded, b[0].points_padded),
