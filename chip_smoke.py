@@ -208,7 +208,18 @@ full-arena fusion) and ``PointFusion(assoc='projective', assoc_window=...)``
      the training step, block gating, ``compact_slam_state`` and
      ``append_rows_to_map``): every call of
      each call site one kernel call, no ``torch.cumsum`` on the card, and
-     the graphed runs' counts the op-by-op run's.
+     the graphed runs' counts the op-by-op run's;
+ 36. the gradICP iteration's kernels (``csrc/icp_system.cu``, behind
+     ``point_to_plane_gradICP`` when no input needs a gradient) at the
+     cells' shapes (seq64's frame step, the loop cell's odometry and its
+     closure's verification): the block sums within float32 rounding of a
+     float64 plain version, the update's points bit-equal to
+     ``transform_pointcloud``, the fused gradICP within 1e-4 of the op-by-op
+     composition; one iteration's four launches timed beside a whole
+     iteration fused and op by op, the two KNN launches and the bound; then
+     the launches on every gradICP path (a sequence, ``step_state``, a
+     closure: 4 an iteration, the trace's ``gs_icp_*`` kernels matching;
+     the training step: none).
 
 On the card ``slam_sequence``, the managed segments, ``ICPSLAM``'s steps,
 loop closure and the refiners run as captured CUDA graphs. The phases that
@@ -236,7 +247,9 @@ three a frame step on the cells' paths (the arena's compaction, the
 odometry targets, the append), two kernels on the device each. Phase 35
 counts them on every path that compacts or appends; each traced run of
 phases 32-35 holds the calls that the run counted against the
-``gs_mask_scan_*`` kernels in its trace. Any failed check raises. The line before the last is a JSON object with
+``gs_mask_scan_*`` kernels in its trace, and the gradICP iteration's
+kernels (``icp_system_kernel``, four an ICP iteration) against its
+``gs_icp_*`` kernels. Any failed check raises. The line before the last is a JSON object with
 one entry per kernel; the last line is
 ``{"ok": true, "device": ...}``. Needs one card; exits non-zero without one.
 """
@@ -244,6 +257,7 @@ one entry per kernel; the last line is
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import pathlib
@@ -1900,6 +1914,7 @@ class _KnnTap:
             return out
 
         def closing(real):
+            @functools.wraps(real)  # close_loops_rgbd binds its options to close_loops_batched's signature
             def wrapped(*args, **kwargs):
                 self.active += 1
                 try:
@@ -3363,47 +3378,16 @@ HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchCooperativeKernel", "cuLaunchKer
                  "cuGraphLaunch")
 
 
-# Kineto's log lines, which ``_kineto_log`` takes off stderr: its records
-# count of a trace and the lines around it
-KINETO_LINE = re.compile(r"^(INFO|STAGE|USDT|WARNING):\S+ \S+ \d+:\d+ \w+\.cpp:\d+\]|^  (Log file|Trace start time|"
-                         r"Trace duration|Warmup duration|Max GPU buffer size|Enabled activities):")
-OUT_OF_RANGE = re.compile(r"Record counts: Out-of-range = (\d+)")
-
-
-@contextlib.contextmanager
-def _kineto_log():
-    """Takes the process's stderr (file descriptor 2, where Kineto writes)
-    while open; then yields {"out_of_range": the device records that
-    Kineto's traces in it dropped as outside their window, None where its
-    INFO log (``KINETO_LOG_LEVEL=1``, which ``main`` sets before the first
-    trace) did not say} and writes the rest of what it took back to stderr."""
-    found = {"out_of_range": None}
-    sys.stderr.flush()
-    saved = os.dup(2)
-    with tempfile.TemporaryFile() as f:
-        os.dup2(f.fileno(), 2)
-        try:
-            yield found
-        finally:
-            sys.stderr.flush()
-            os.dup2(saved, 2)
-            os.close(saved)
-            f.seek(0)
-            lines = f.read().decode(errors="replace").splitlines()
-    counts = [int(m.group(1)) for line in lines for m in [OUT_OF_RANGE.search(line)] if m]
-    found["out_of_range"] = sum(counts) if counts else None
-    rest = [line for line in lines if not KINETO_LINE.match(line)]
-    if rest:
-        print("\n".join(rest), file=sys.stderr, flush=True)
-
-
 def _profiled(name, fn):
     """``fn()`` under ``torch.profiler`` with the launch counts set to 0
     just before it: the counts that the replays added, held against the
     port's kernels that the device ran (by their CUDA functions' names),
-    and the mask scan's counted calls, two kernels each, against its
-    ``gs_mask_scan_count`` and ``gs_mask_scan_place`` records. Returns (the
-    counts, the host's launch calls).
+    the mask scan's counted calls, two kernels each, against its
+    ``gs_mask_scan_count`` and ``gs_mask_scan_place`` records, and the
+    gradICP kernels' counted launches, four an iteration, against its
+    ``gs_icp_linearize`` records (two an iteration) and its
+    ``gs_icp_lookahead`` and ``gs_icp_update`` records (one each). Returns
+    (the counts, the host's launch calls, the trace's port kernels by name).
 
     A trace can leave device records out: Kineto drops the records whose
     device timestamps fall outside the trace's window, and counts them (an
@@ -3413,31 +3397,33 @@ def _profiled(name, fn):
     any other difference fails."""
     from torch.profiler import ProfilerActivity, profile
 
-    from gradslam_tpu_torch.ops import mask_scan_kernel
+    from gradslam_tpu_torch.ops import icp_system_kernel, mask_scan_kernel
+    from tests.kineto_log import kineto_log
 
     for attempt in (1, 2, 3):
         torch.cuda.synchronize()
         _reset_launches()
-        mask_scan_kernel.launches = 0
-        with _kineto_log() as kineto:
+        mask_scan_kernel.launches = icp_system_kernel.launches = 0
+        with kineto_log() as kineto:
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 fn()
                 torch.cuda.synchronize()
-        counted = _launches()
+        counted, icp = _launches(), icp_system_kernel.launches
+        _check(icp % 4 == 0, f"{name}: {icp} gradICP kernel launches, not four an iteration")
         want = {**counted, "gs_mask_scan_count": mask_scan_kernel.launches,
-                "gs_mask_scan_place": mask_scan_kernel.launches}
+                "gs_mask_scan_place": mask_scan_kernel.launches, "gs_icp_linearize": icp // 2,
+                "gs_icp_lookahead": icp // 4, "gs_icp_update": icp // 4}
+        kernel = {"knn": "knn_cluster", "winner": "winner_grid"}
         ran = dict.fromkeys(want, 0)
         host = 0
         for e in prof.events():
             if e.device_type == torch.autograd.DeviceType.CUDA:
-                ran["knn"] += "knn_cluster" in e.name
-                ran["winner"] += "winner_grid" in e.name
-                ran["gs_mask_scan_count"] += "gs_mask_scan_count" in e.name
-                ran["gs_mask_scan_place"] += "gs_mask_scan_place" in e.name
+                for k in ran:
+                    ran[k] += kernel.get(k, k) in e.name
             else:
                 host += e.name.startswith(HOST_LAUNCHES)
         if ran == want:
-            return counted, host
+            return counted, host, ran
         short, dropped = sum(want[k] - ran[k] for k in want), kineto["out_of_range"]
         _log(f"{name}: trace {attempt} of 3 holds {ran} port kernels, the counters say {want}; Kineto dropped "
              f"{dropped} device records outside the trace's window")
@@ -3833,7 +3819,7 @@ def train_graph_cell(dev, name, clip, cpu_grads=None):
     # a replay also counts the mask scan's calls: the first frame's
     # compaction and append, and three a later frame (the odometry targets)
     _check(all(r[2] == expected for r in runs.values()) and profiled == expected
-           and per_replay == {**expected, "mask_scan": 3 * L - 1},
+           and per_replay == {**expected, "mask_scan": 3 * L - 1, "icp_system": 0},
            f"train {name}: launches {[r[2] for r in runs.values()]}, profiled {profiled}, a replay {per_replay}")
     return runs["graphed"][2]
 
@@ -4522,11 +4508,265 @@ def scan_phase(dev, smi):
             "launches": calls[SCAN_SEQ]["graphed"][0]}
 
 
+# ---------------------------------------------------------------------------
+# 36. the gradICP iteration's kernels (csrc/icp_system.cu)
+# ---------------------------------------------------------------------------
+
+# (B, S, T, valid targets, a prefix): seq64's frame step (PointFusion's
+# 19,456 targets, the main path's valid prefix), the loop cell's odometry
+# ('recent' targets: about 19,000 valid of the buffer) and its closure's
+# verification (K = 8 candidates x 7 yaw seeds, every target valid); the
+# last a launch-bound floor
+ICP_SHAPES = {
+    "seq64 frame step": (2, 4_800, 19_456, 6_229),
+    "loop odometry": (1, 19_200, 76_800, 19_000),
+    "loop closure verify": (56, 19_200, 19_200, 19_200),
+    "one block": (1, 256, 256, 256),
+}
+ICP_ITERS = 20
+ICP_SEQ = "slam_sequence seq64 B=2 L=64"  # the path whose graphed run gives the kernels line its launches
+ICP_GATES = dict(dist_thresh=0.002, robust_delta=0.01)
+# bytes each pass reads and writes a source: linearize the point, the KNN's
+# two outputs, the weight and the target row; the lookahead and the update a
+# point in and a point out
+ICP_SOURCE_BYTES = {"linearize": 12 + 8 + 4 + 24, "lookahead": 24, "update": 24}
+
+
+def _icp_problem(dev, B, S, T, n_valid, seed=0):
+    from tests.icp_cases import icp_case, torch_case
+
+    return torch_case(icp_case(B, S, T, seed=seed, n_valid=n_valid, changes=("invalid sources",)), dev)
+
+
+def _icp_bound_ms(B, S):
+    """The least time of an iteration's four passes: every byte read or
+    written once at the HBM rate (the block sums too, once)."""
+    from gradslam_tpu_torch.ops import icp_system
+
+    sums = B * icp_system.num_blocks(S) * icp_system.TERMS * 4
+    per_source = 2 * ICP_SOURCE_BYTES["linearize"] + ICP_SOURCE_BYTES["lookahead"] + ICP_SOURCE_BYTES["update"]
+    return (B * S * per_source + 4 * sums) / HBM_BYTES_PER_S * 1e3
+
+
+def _icp_case_check(name, p):
+    """The passes against their plain versions at one shape, with the
+    tolerances of the card test ``test_icp_system_kernels_equal_plain_version``:
+    the block sums within float32 rounding of each sum's scale; the
+    lookahead's ``xi`` and ``err`` against ``lookahead_reference`` and its
+    points against ``transform_pointcloud`` at ``se3_exp(xi)``; the update's
+    pose, damping and points against ``update_reference`` on the same block
+    sums, and its points bit-equal to ``transform_pointcloud`` at the pose it
+    wrote. Then the fused gradICP against the op-by-op composition (20
+    iterations, every pose entry). Returns (the largest block-sum gap, the
+    largest pose gap)."""
+    from gradslam_tpu_torch.geometry import se3_exp, transform_pointcloud
+    from gradslam_tpu_torch.odometry import icputils
+    from gradslam_tpu_torch.ops import icp_system, knn, prepare_targets
+    from tests.icp_cases import sums_scale
+
+    B, S = p["src"].shape[:2]
+    src, packed = p["src"], torch.cat([p["tgt"], p["tgt_n"]], -1)
+    dist, idx = knn(src, prepare_targets(p["tgt"], p["tgt_valid"]))
+    args = (src, dist, idx, packed, p["src_valid"], ICP_GATES["dist_thresh"], ICP_GATES["robust_delta"])
+    partials = torch.empty((B, icp_system.num_blocks(S), icp_system.TERMS), device=src.device)
+    icp_system.linearize(*args, partials)
+    want64 = partials.double()
+    icp_system.linearize_reference(*[a.double() if torch.is_tensor(a) and a.is_floating_point() else a
+                                     for a in args], want64)
+    gap = ((partials.sum(1).double() - want64.sum(1)).abs() / sums_scale(want64.sum(1))).nan_to_num(0.0)
+    _check(float(gap.max()) <= 1e-5, f"icp {name}: block sums {float(gap.max())} of their scale off float64")
+    f = dict(device=src.device)
+    damp, xi, err = torch.full((B,), 1e-3, **f), torch.empty((B, 6), **f), torch.empty((B,), **f)
+    one_step = torch.empty_like(src)
+    icp_system.lookahead(src, partials, damp, xi, err, one_step)
+    ref = (torch.empty_like(xi), torch.empty_like(err), torch.empty_like(one_step))
+    icp_system.lookahead_reference(src, partials, damp, *ref)
+    _check(torch.allclose(xi, ref[0], rtol=1e-4, atol=1e-7) and torch.allclose(err, ref[1], rtol=1e-5, atol=0),
+           f"icp {name}: the lookahead's xi {float((xi - ref[0]).abs().max())} or err "
+           f"{float((err - ref[1]).abs().max())} off the plain version")
+    _check(torch.allclose(one_step, transform_pointcloud(src, se3_exp(xi)), rtol=0, atol=1e-6),
+           f"icp {name}: the lookahead's points differ from transform_pointcloud's at se3_exp(xi)")
+    gates = icp_system.Gates.of(2.0, 1.0, 1.0, 200.0)
+    moved, transform, new_damp = src.clone(), torch.eye(4, **f).repeat(B, 1, 1), damp.clone()
+    icp_system.update(moved, partials, xi, err, new_damp, transform, gates)
+    _check(torch.equal(moved, transform_pointcloud(src, transform)),
+           f"icp {name}: the update's points differ from transform_pointcloud's")
+    ref_src, ref_t, ref_damp = src.clone(), torch.eye(4, **f).repeat(B, 1, 1), damp.clone()
+    icp_system.update_reference(ref_src, partials, xi, err, ref_damp, ref_t, gates)
+    _check(torch.allclose(transform, ref_t, rtol=0, atol=1e-6) and torch.allclose(new_damp, ref_damp, rtol=1e-6),
+           f"icp {name}: the update's pose {float((transform - ref_t).abs().max())} or damping "
+           f"{float((new_damp - ref_damp).abs().max())} off the plain version")
+    # poses within 1e-6 an entry move a point (x, y, z) by at most 1e-6 (|x| + |y| + |z| + 1), and float32
+    # rounds each coordinate of it once more
+    reach = 2e-6 * (src.abs().sum(-1, keepdim=True) + 1.0)
+    _check(bool(((moved - ref_src).abs() <= reach).all()),
+           f"icp {name}: the update's points {float((moved - ref_src).abs().max())} off the plain version's")
+    kw = dict(ICP_GATES, src_valid=p["src_valid"], tgt_valid=p["tgt_valid"])
+    fused = icputils.point_to_plane_gradICP(p["src"], p["tgt"], p["tgt_n"], numiters=ICP_ITERS, **kw)
+    solve = icputils._knn_solver(p["tgt"], p["tgt_n"], ICP_GATES["dist_thresh"], p["src_valid"], p["tgt_valid"],
+                                 ICP_GATES["robust_delta"])
+    op_by_op = icputils._gradicp_loop(solve, p["src"], None, ICP_ITERS, 1e-8, 2.0, 1.0, 1.0, 200.0)
+    pose_gap = float((fused - op_by_op).abs().max())
+    _check(pose_gap <= 1e-4, f"icp {name}: fused gradICP {pose_gap} off the composition")
+    return float(gap.max()), pose_gap
+
+
+def _replay(fn):
+    """``fn`` captured into a CUDA graph (after a warm-up on a side stream):
+    the graph's replay."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph.replay
+
+
+def _time_icp(name, p):
+    """ms of one iteration's four passes on fixed KNN outputs, of a whole
+    iteration fused and op by op (a 20-iteration gradICP captured into a
+    CUDA graph, as the cells run it, over 20: the two KNN launches and the
+    call's set-up included), of the two KNN launches alone, and the bound."""
+    from gradslam_tpu_torch.odometry import icputils
+    from gradslam_tpu_torch.ops import icp_system, knn, prepare_targets
+
+    B, S = p["src"].shape[:2]
+    prepared = prepare_targets(p["tgt"], p["tgt_valid"])
+    src = p["src"].clone()
+    packed = torch.cat([p["tgt"], p["tgt_n"]], -1)
+    dist, idx = knn(src, prepared)
+    f = dict(device=src.device)
+    partials = torch.empty((B, icp_system.num_blocks(S), icp_system.TERMS), **f)
+    damp, xi, err = torch.full((B,), 1e-8, **f), torch.empty((B, 6), **f), torch.empty((B,), **f)
+    one_step, transform = torch.empty_like(src), torch.eye(4, **f).repeat(B, 1, 1)
+    gates = icp_system.Gates.of(2.0, 1.0, 1.0, 200.0)
+    lin = (dist, idx, packed, p["src_valid"], ICP_GATES["dist_thresh"], ICP_GATES["robust_delta"], partials)
+
+    def passes():
+        icp_system.linearize(src, *lin)
+        icp_system.lookahead(src, partials, damp, xi, err, one_step)
+        icp_system.linearize(one_step, *lin)
+        icp_system.update(src, partials, xi, err, damp, transform, gates)
+
+    kw = dict(ICP_GATES, src_valid=p["src_valid"], tgt_valid=p["tgt_valid"])
+    solve = icputils._knn_solver(p["tgt"], p["tgt_n"], ICP_GATES["dist_thresh"], p["src_valid"], p["tgt_valid"],
+                                 ICP_GATES["robust_delta"])
+    reps = 3 if B * S > 100_000 else 10
+    fused = _replay(lambda: icputils.point_to_plane_gradICP(p["src"], p["tgt"], p["tgt_n"], numiters=ICP_ITERS, **kw))
+    op_by_op = _replay(lambda: icputils._gradicp_loop(solve, p["src"], None, ICP_ITERS, 1e-8, 2.0, 1.0, 1.0, 200.0))
+    out = {
+        "four passes": _time_ms(passes, reps=200),
+        "iteration fused": _time_ms(fused, reps=reps) / ICP_ITERS,
+        "iteration op by op": _time_ms(op_by_op, reps=reps) / ICP_ITERS,
+        "two knn": 2 * _time_ms(lambda: knn(src, prepared), reps=20),
+        "bound": _icp_bound_ms(B, S),
+    }
+    out["plain (op by op less the knn)"] = out["iteration op by op"] - out["two knn"]
+    _log(f"icp {name} B={B} S={S}: " + ", ".join(f"{k} {v:.6f} ms" for k, v in out.items()))
+    return out
+
+
+def icp_paths(dev):
+    """The kernels' launches on each path that runs gradICP, op by op and
+    graphed: seq64's ``slam_sequence`` (B=2, L=64, its arena), ``init_state``
+    + 3 ``step_state`` (B=1), ``close_loops`` with both detectors, and the
+    training step (L=3: its gradient takes the composition, no launch). Each
+    run counts from counters set to 0 just before it. On the fused paths 4
+    launches an ICP iteration; each path's graphed run once more through
+    ``_profiled``, where ``gs_icp_linearize`` runs once a ``knn_cluster``
+    launch of ICP and the lookahead and update once every two. Returns
+    {path: {"op by op": (knn, icp), "graphed": (knn, icp), "trace": the
+    trace's port kernels by name}}."""
+    from gradslam_tpu_torch import PointFusion, RGBDImages, clear_graphs, value_and_grad
+    from gradslam_tpu_torch.ops import icp_system_kernel, knn_kernel
+    from gradslam_tpu_torch.parallel import DepthCalibParams, slam_loss
+    from gradslam_tpu_torch.slam import close_loops, keyframe_descriptors_invariant, slam_sequence
+    from tests.test_torch_cuda import _loop_clouds
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        knn_kernel.launches = icp_system_kernel.launches = 0
+        fn()
+        torch.cuda.synchronize()
+        return knn_kernel.launches, icp_system_kernel.launches
+
+    colors, depths, K = _scannet_clip(64)
+    B, L, H, W = colors.shape[:4]
+    rgb, depth, Kt = (torch.from_numpy(x).to(dev) for x in (colors, depths, K))
+    opts = PointFusion(device=dev).opts
+    slam = PointFusion(device=dev)
+    frames = [RGBDImages(colors[:1, t:t + 1], depths[:1, t:t + 1], K[:1], device=dev) for t in range(4)]
+
+    def online():
+        state = slam.init_state(frames[0])
+        for fr in frames[1:]:
+            state = slam.step_state(state, fr)
+        return state.pose
+
+    dr, pts, nrm, val = (torch.from_numpy(x).to(dev) for x in _loop_clouds())
+    desc = keyframe_descriptors_invariant(pts, nrm, val)
+    tr_rgb, _, obs, tr_K = _calib_inputs(colors[:, :3], depths[:, :3], K, dev)
+    gt = torch.from_numpy(_cycled_poses(3)).to(dev)
+    params = DepthCalibParams(device=dev)
+    vg = value_and_grad(slam_loss)
+    paths = {
+        ICP_SEQ: (lambda: slam_sequence(rgb, depth, Kt, None, opts, L * H * W), True),
+        "init_state + 3 step_state B=1": (online, True),
+        "close_loops both detectors": (lambda: close_loops(dr, pts, nrm, val, max_candidates=4, min_separation=5,
+                                                           max_distance=0.3, detection="both", descriptors=desc),
+                                       True),
+        "training step L=3": (lambda: vg(params, tr_rgb, obs, tr_K, gt, opts, 3 * H * W), False),
+    }
+    out = {}
+    for name, (run, fused) in paths.items():
+        clear_graphs()
+        with _eager():
+            eager = counted(run)
+        graphed = [counted(run) for _ in range(2)]
+        trace = _profiled(f"icp path {name}", run)[2]
+        out[name] = {"op by op": eager, "graphed": graphed[-1], "trace": trace}
+        _log(f"icp path {name}: (knn, icp_system) launches op by op {eager}, graphed {graphed}; trace {trace}")
+        _check(all(g == eager for g in graphed), f"icp path {name}: graphed {graphed} vs op by op {eager}")
+        if fused:  # each ICP iteration 2 KNN and 4 icp_system launches; a closure adds 1 KNN a detector set
+            iters = eager[1] // 4
+            _check(eager[1] == 4 * iters and 2 * iters <= eager[0] <= 2 * iters + 2 and iters > 0,
+                   f"icp path {name}: {eager}")
+            _check(trace["gs_icp_linearize"] == 2 * trace["gs_icp_lookahead"] == 2 * trace["gs_icp_update"]
+                   == 2 * iters and trace["knn"] == eager[0], f"icp path {name}: trace {trace}")
+        else:
+            _check(eager[1] == 0 and sum(trace[n] for n in trace if n.startswith("gs_icp")) == 0,
+                   f"icp path {name}: the gradient's path launched {eager} and traced {trace}")
+    clear_graphs()
+    return out
+
+
+def icp_phase(dev, smi):
+    """Phase 36: the gradICP iteration's kernels against their plain versions
+    and the fused gradICP against the op-by-op composition at the cells'
+    shapes; timed there beside the composition, the KNN and the bound;
+    every gradICP path's launches (``icp_paths``). Returns the kernels'
+    entry."""
+    t0 = time.perf_counter()
+    checks, timings = {}, {}
+    for i, (name, (B, S, T, n_valid)) in enumerate(ICP_SHAPES.items()):
+        p = _icp_problem(dev, B, S, T, n_valid, seed=i)
+        checks[name] = _icp_case_check(name, p)
+        timings[name] = _time_icp(name, p)
+    _log(f"icp kernels: (largest block-sum gap of its scale, largest pose gap to the composition) {checks}")
+    calls = icp_paths(dev)
+    _log(f"icp phase: {time.perf_counter() - t0:.1f} s on {smi}")
+    return {"kernel": "icp_system", "timings_ms": timings, "checks": checks, "launches_by_path": calls,
+            "launches": calls[ICP_SEQ]["graphed"][1]}
+
+
 def _build_kernels():
     """Builds every kernel's source at once (one nvcc each) and loads them."""
-    from gradslam_tpu_torch.ops import mask_scan_kernel
+    from gradslam_tpu_torch.ops import icp_system_kernel, mask_scan_kernel
 
-    kernels = [*_kernels().values(), mask_scan_kernel]
+    kernels = [*_kernels().values(), mask_scan_kernel, icp_system_kernel]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels)) as ex:
         list(ex.map(lambda k: k.load(), kernels))
@@ -4610,6 +4850,7 @@ def main() -> int:
     by_path.update(train_graph_phase(dev, smi, cpu_grads, eager_scale, compacted_cpu_grad))
     by_path.update(closure_graph_phase(dev, smi))
     scan_entry = scan_phase(dev, smi)
+    icp_entry = icp_phase(dev, smi)
     for name, entry in entries.items():
         # launches: the ScanNet geometry's run of the path each kernel is
         # timed for; every path's count beside it
@@ -4617,7 +4858,7 @@ def main() -> int:
         entry["launches_by_path"] = {path: counts[name] for path, counts in by_path.items()}
     _log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     _log(f"{smi}")
-    print(json.dumps({"kernels": list(entries.values()) + [scan_entry]}))
+    print(json.dumps({"kernels": list(entries.values()) + [scan_entry, icp_entry]}))
     print(json.dumps({
         "ok": True,
         "device": {

@@ -10,6 +10,12 @@ model image (O(S) per iteration, no kernel of its own).
 
 Every small product here is a broadcast multiply-and-sum, so it runs in
 full float32 whatever ``torch.backends.cuda.matmul.allow_tf32`` says.
+
+:func:`point_to_plane_gradICP` on a CUDA float32 input that needs no
+gradient runs each iteration as two KNN launches and the four passes of
+:mod:`ops.icp_system` (``csrc/icp_system.cu``) on fixed buffers
+(:func:`_gradicp_system`); with a gradient, and on the CPU, it runs the
+op-by-op composition below, whose intermediates the backward needs.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import torch
 
 from ..geometry import se3_exp, transform_pointcloud
 from ..geometry.projutils import matmul_small, project_points_to_pixels
+from ..ops import icp_system
 from ..ops.knn import KnnTargets, knn, prepare_targets
 
 __all__ = [
@@ -314,15 +321,64 @@ def point_to_plane_gradICP(
 ) -> torch.Tensor:
     """GradLM point-to-plane ICP, the gradSLAM paper's smooth LM.
 
-    Two KNN associations per iteration (the step and its lookahead).
+    Two KNN associations per iteration (the step and its lookahead). A CUDA
+    float32 ``src_pc`` with no input that needs a gradient takes
+    :func:`_gradicp_system` (the kernels of ``csrc/icp_system.cu``); every
+    other call the op-by-op composition, differentiable.
 
     Returns:
         (B, 4, 4) transforms aligning src to tgt.
     """
+    if _takes_kernels(src_pc, tgt_pc, tgt_normals, initial_transform, src_valid):
+        return _gradicp_system(
+            src_pc, tgt_pc, tgt_normals, initial_transform, numiters, damp, dist_thresh,
+            icp_system.Gates.of(lambda_max, B, B2, nu), src_valid, tgt_valid, robust_delta,
+        )
     solve_fn = _knn_solver(tgt_pc, tgt_normals, dist_thresh, src_valid, tgt_valid, robust_delta)
     return _gradicp_loop(
         solve_fn, src_pc, initial_transform, numiters, damp, lambda_max, B, B2, nu
     )
+
+
+def _takes_kernels(src_pc, *inputs) -> bool:
+    """Whether gradICP runs as :func:`_gradicp_system` on the kernels: a
+    CUDA float32 ``src_pc``, and no input that needs a gradient."""
+    return src_pc.is_cuda and src_pc.dtype == torch.float32 and not _needs_grad(src_pc, *inputs)
+
+
+def _needs_grad(*tensors) -> bool:
+    """Whether autograd would record an op on any of ``tensors``."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+def _gradicp_system(src_pc, tgt_pc, tgt_normals, initial_transform, numiters, damp, dist_thresh,
+                    gates, src_valid, tgt_valid, robust_delta):
+    """:func:`_gradicp_loop` with KNN association as :mod:`ops.icp_system`'s
+    passes: per iteration KNN, ``linearize``, ``lookahead``, KNN,
+    ``linearize``, ``update``, on buffers made once (no allocation, no host
+    sync in the loop, so a CUDA graph captures it). The kernels on a CUDA
+    input, their plain versions on a CPU one (which only tests call)."""
+    nbatch, S = src_pc.shape[:2]
+    dev = src_pc.device
+    prepared = prepare_targets(tgt_pc, tgt_valid)
+    packed = torch.cat([tgt_pc, tgt_normals], dim=-1)
+    transform = _identity(nbatch, src_pc) if initial_transform is None else initial_transform
+    transform = transform.clone(memory_format=torch.contiguous_format)
+    src = transform_pointcloud(src_pc, transform).contiguous()
+    src_w = None if src_valid is None else src_valid.to(src.dtype).contiguous()
+    damp_v = torch.full((nbatch,), damp, dtype=src.dtype, device=dev)
+    partials = torch.empty((nbatch, icp_system.num_blocks(S), icp_system.TERMS), dtype=src.dtype, device=dev)
+    xi = torch.empty((nbatch, 6), dtype=src.dtype, device=dev)
+    err = torch.empty((nbatch,), dtype=src.dtype, device=dev)
+    one_step = torch.empty_like(src)
+    for _ in range(numiters):
+        dist, idx = knn(src, prepared)
+        icp_system.linearize(src, dist, idx, packed, src_w, dist_thresh, robust_delta, partials)
+        icp_system.lookahead(src, partials, damp_v, xi, err, one_step)
+        dist, idx = knn(one_step, prepared)
+        icp_system.linearize(one_step, dist, idx, packed, src_w, dist_thresh, robust_delta, partials)
+        icp_system.update(src, partials, xi, err, damp_v, transform, gates)
+    return transform
 
 
 def _projective_solver(tgt_img, view_pose, intrinsics, H, W, dist_thresh, src_valid, robust_delta):

@@ -1,3 +1,4 @@
+from .icp_system import icp_system_kernel
 from .knn import KnnTargets, knn, knn_kernel, knn_reference, prepare_targets
 from .masking import (
     append_slots,
@@ -26,6 +27,7 @@ __all__ = [
     "append_slots",
     "append_slots_reference",
     "mask_scan_kernel",
+    "icp_system_kernel",
     "pixel_winner",
     "pixel_winner_reference",
     "winner_kernel",

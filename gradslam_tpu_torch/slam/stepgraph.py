@@ -95,6 +95,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from ..ops.icp_system import icp_system_kernel
 from ..ops.knn import knn_kernel
 from ..ops.masking import mask_scan_kernel
 from ..ops.winner import winner_kernel
@@ -120,7 +121,7 @@ __all__ = [
 ]
 
 # the wrappers whose launch counts a replay adds to
-_KERNELS = (knn_kernel, winner_kernel, mask_scan_kernel)
+_KERNELS = (knn_kernel, winner_kernel, mask_scan_kernel, icp_system_kernel)
 
 # captured steps a cache keeps (the ones used last)
 MAX_GRAPHS = 4
@@ -344,8 +345,8 @@ class _Graph:
     @property
     def launches(self):
         """Kernel calls per replay, one entry a counted wrapper by its name,
-        ``{"knn": n, "winner": n, "mask_scan": n}`` (None before the
-        capture)."""
+        ``{"knn": n, "winner": n, "mask_scan": n, "icp_system": n}`` (None
+        before the capture)."""
         n = self._run.launches
         return None if n is None else {k.name: c for k, c in zip(_KERNELS, n)}
 

@@ -25,6 +25,8 @@ from gradslam_tpu_torch.ops import (
     append_slots_reference,
     compact_masked,
     compact_masked_reference,
+    icp_system,
+    icp_system_kernel,
     knn,
     knn_kernel,
     knn_reference,
@@ -34,6 +36,7 @@ from gradslam_tpu_torch.ops import (
     winner_keys,
     winner_kernel,
 )
+from tests.icp_cases import ICP_CASES, gradicp_kwargs, icp_case, sums_scale, torch_case
 from tests.mask_cases import MASK_EDGES, mask_case
 
 DATA = pathlib.Path(__file__).parent / "data" / "msrd_b2s3"
@@ -396,6 +399,157 @@ def test_mask_scan_kernel_rejects_what_it_does_not_take(cuda_device):
         mask_scan_kernel.compact(mask[None], 8)
     with pytest.raises(ValueError):
         mask_scan_kernel.compact(mask, -1)
+
+
+def _icp_buffers(src):
+    B, S = src.shape[:2]
+    f = dict(dtype=torch.float32, device=src.device)
+    return (torch.empty((B, icp_system.num_blocks(S), icp_system.TERMS), **f), torch.empty((B, 6), **f),
+            torch.empty((B,), **f), torch.empty_like(src))
+
+
+@pytest.mark.parametrize("B,S,T", [(2, 4800, 19456), (1, 1000, 3000), (3, 300, 200), (1, 1, 5)])
+@pytest.mark.parametrize("gates", [dict(), dict(dist_thresh=0.002, robust_delta=0.01)])
+def test_icp_system_kernels_equal_plain_version(cuda_device, B, S, T, gates):
+    """Each pass against its plain version on the same inputs: the block
+    sums within float32 rounding of each sum's scale, the lookahead's solve
+    and step close, and the update's moved sources bit-equal to
+    ``transform_pointcloud`` at the pose the update wrote."""
+    from gradslam_tpu_torch.geometry import se3_exp, transform_pointcloud
+    from gradslam_tpu_torch.ops import prepare_targets
+
+    p = torch_case(icp_case(B, S, T, seed=S, n_valid=max(1, 3 * T // 4), changes=("invalid sources",)),
+                   cuda_device)
+    src, packed = p["src"], torch.cat([p["tgt"], p["tgt_n"]], -1)
+    dist, idx = knn(src, prepare_targets(p["tgt"], p["tgt_valid"]))
+    args = (src, dist, idx, packed, p["src_valid"], gates.get("dist_thresh"), gates.get("robust_delta"))
+    partials, xi, err, one_step = _icp_buffers(src)
+    want = partials.clone()
+    before = icp_system_kernel.launches
+    icp_system.linearize(*args, partials)
+    icp_system.linearize_reference(*args, want)
+    f64 = [a.double() if torch.is_tensor(a) and a.is_floating_point() else a for a in args]
+    want64 = want.double()
+    icp_system.linearize_reference(*f64, want64)
+    scale = sums_scale(want64.sum(1))
+    for got in (partials, want):
+        assert bool(((got.sum(1).double() - want64.sum(1)).abs() <= 1e-5 * scale + 1e-30).all())
+    damp = torch.full((B,), 1e-3, device=cuda_device)
+    ref = _icp_buffers(src)[1:]
+    icp_system.lookahead(src, partials, damp, xi, err, one_step)
+    icp_system.lookahead_reference(src, partials, damp, *ref)
+    assert torch.allclose(xi, ref[0], rtol=1e-4, atol=1e-7) and torch.allclose(err, ref[1], rtol=1e-5, atol=0)
+    assert torch.allclose(one_step, transform_pointcloud(src, se3_exp(xi)), rtol=0, atol=1e-6)
+    moved, transform = src.clone(), torch.eye(4, device=cuda_device).repeat(B, 1, 1)
+    new_damp = damp.clone()
+    gates_ = icp_system.Gates.of(2.0, 1.0, 1.0, 200.0)
+    icp_system.update(moved, partials, xi, err, new_damp, transform, gates_)
+    assert icp_system_kernel.launches == before + 3
+    assert torch.equal(moved, transform_pointcloud(src, transform))
+    ref_src, ref_t, ref_damp = src.clone(), torch.eye(4, device=cuda_device).repeat(B, 1, 1), damp.clone()
+    icp_system.update_reference(ref_src, partials, xi, err, ref_damp, ref_t, gates_)
+    assert torch.allclose(transform, ref_t, rtol=0, atol=1e-6) and torch.allclose(new_damp, ref_damp, rtol=1e-6)
+
+
+def _gradicp(p, name, numiters=20):
+    from gradslam_tpu_torch.odometry import point_to_plane_gradICP
+
+    return point_to_plane_gradICP(p["src"], p["tgt"], p["tgt_n"], numiters=numiters, **gradicp_kwargs(p, name))
+
+
+def _gradicp_composition(p, name, numiters=20):
+    """The op-by-op composition, which the card takes only under a gradient."""
+    from gradslam_tpu_torch.odometry import icputils
+
+    kw = gradicp_kwargs(p, name)
+    solve = icputils._knn_solver(p["tgt"], p["tgt_n"], kw.get("dist_thresh"), kw["src_valid"], kw["tgt_valid"],
+                                 kw.get("robust_delta"))
+    lm = {k: kw.get(k, d) for k, d in (("lambda_max", 2.0), ("B", 1.0), ("B2", 1.0), ("nu", 200.0))}
+    return icputils._gradicp_loop(solve, p["src"], kw.get("initial_transform"), numiters, 1e-8, **lm)
+
+
+@pytest.mark.parametrize("case", list(ICP_CASES))
+def test_fused_gradicp_equals_the_composition(cuda_device, case):
+    """point_to_plane_gradICP on the card (the kernels) against the op-by-op
+    composition on the card: within 1e-5 in every pose entry."""
+    p = torch_case(icp_case(2, 4800, 19456, seed=len(case), n_valid=6229, changes=ICP_CASES[case][1]),
+                   cuda_device)
+    got, want = _gradicp(p, case), _gradicp_composition(p, case)
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) < 1e-5
+
+
+def test_fused_gradicp_is_batch_independent_and_repeats(cuda_device):
+    """A batch element's pose has the same bits alone and in a batch of 2,
+    and two runs give the same bits."""
+    p = torch_case(icp_case(2, 4800, 19456, seed=9, n_valid=6229, changes=("invalid sources",)), cuda_device)
+    both = _gradicp(p, "all gates")
+    assert torch.equal(both, _gradicp(p, "all gates"))
+    for b in range(2):
+        alone = {k: v[b : b + 1] for k, v in p.items()}
+        assert torch.equal(_gradicp(alone, "all gates"), both[b : b + 1])
+
+
+def test_fused_gradicp_in_a_captured_graph(cuda_device):
+    """The fused loop captured into one CUDA graph and replayed on new
+    sources: each replay bit-equal to the eager run."""
+    p = torch_case(icp_case(2, 4800, 19456, seed=2, n_valid=6229), cuda_device)
+    static = {k: v.clone() for k, v in p.items()}
+    _gradicp(static, "all gates")  # build, load, warm the allocator
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = _gradicp(static, "all gates")
+    for seed in (3, 4):
+        q = torch_case(icp_case(2, 4800, 19456, seed=seed, n_valid=6229), cuda_device)
+        for k in static:
+            static[k].copy_(q[k])
+        graph.replay()
+        assert torch.equal(out, _gradicp(q, "all gates"))
+
+
+def test_fused_gradicp_launch_counts(cuda_device):
+    """2 KNN and 4 icp_system launches an iteration; with an input that
+    requires grad, the composition: 2 KNN launches an iteration and no
+    icp_system launch."""
+    p = torch_case(icp_case(2, 1000, 3000, seed=1), cuda_device)
+    before = (knn_kernel.launches, icp_system_kernel.launches)
+    _gradicp(p, "plain", numiters=5)
+    assert (knn_kernel.launches - before[0], icp_system_kernel.launches - before[1]) == (10, 20)
+    p["src"].requires_grad_()
+    before = (knn_kernel.launches, icp_system_kernel.launches)
+    T = _gradicp(p, "plain", numiters=5)
+    assert (knn_kernel.launches - before[0], icp_system_kernel.launches - before[1]) == (10, 0)
+    assert T.requires_grad
+
+
+def test_icp_system_kernel_rejects_what_it_does_not_take(cuda_device):
+    p = torch_case(icp_case(2, 300, 400, seed=1), cuda_device)
+    src, packed = p["src"], torch.cat([p["tgt"], p["tgt_n"]], -1)
+    dist, idx = knn(src, p["tgt"])
+    partials, xi, err, one_step = _icp_buffers(src)
+    lin = lambda **kw: icp_system_kernel.linearize(  # noqa: E731
+        **{**dict(src=src, dist=dist, idx=idx, tgt_packed=packed, src_w=None, dist_thresh=None, robust_delta=None,
+                  partials=partials), **kw})
+    lin()
+    with pytest.raises(TypeError):
+        lin(src=src.double())
+    with pytest.raises(TypeError):
+        lin(idx=idx.long())
+    with pytest.raises(ValueError):
+        lin(tgt_packed=packed.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError):
+        lin(dist=dist.cpu())
+    with pytest.raises(ValueError):
+        lin(partials=partials[:, :1])
+    with pytest.raises(ValueError):
+        icp_system_kernel.lookahead(src, partials, torch.ones(2, device=cuda_device), xi, err, one_step.cpu())
+    with pytest.raises(TypeError):
+        icp_system_kernel.update(src, partials, xi, err, torch.ones(2, device=cuda_device),
+                                 torch.eye(4, device=cuda_device, dtype=torch.float64).repeat(2, 1, 1),
+                                 icp_system.Gates.of(2.0, 1.0, 1.0, 200.0))
+    with pytest.raises(ValueError):  # the CPU's plain version takes no CUDA buffer
+        icp_system.linearize(src.cpu(), dist, idx, packed, None, None, None, partials)
 
 
 def _clip():
@@ -1091,7 +1245,8 @@ def test_training_graph_equals_the_eager_step(cuda_device):
         eager = [_counted(lambda: vg(params, *args)) for _ in range(3)]
     graphed = [_counted(lambda: vg(params, *args)) for _ in range(3)]
     (graph,) = vg.graphs.graphs.values()
-    assert isinstance(graph, GradGraph) and graph.launches == {"knn": 80, "winner": 3, "mask_scan": 8}
+    assert isinstance(graph, GradGraph) and graph.launches == {"knn": 80, "winner": 3, "mask_scan": 8,
+                                                                "icp_system": 0}
     assert all(n == (80, 3) for _, n in eager + graphed)
     loss0 = eager[0][0][0]
     assert all(torch.equal(out[0], loss0) for out, _ in eager + graphed)
@@ -1261,7 +1416,10 @@ def test_closure_graph_equals_the_eager_call(cuda_device, name):
         for x, y in zip(_flat(out), _flat(ref)):
             assert x.shape == y.shape and torch.equal(x, y)
     (graph,) = stepgraph._CLOSURES.graphs.values()
-    assert graph.capture_s is not None and graph.launches == {"knn": knn_launches, "winner": 0, "mask_scan": 0}
+    # each detector set: 20 ICP iterations of 2 KNN and 4 icp_system launches, and 1 KNN launch more
+    icp_launches = knn_launches // (2 * 20 + 1) * 4 * 20
+    assert graph.capture_s is not None and graph.launches == {"knn": knn_launches, "winner": 0, "mask_scan": 0,
+                                                              "icp_system": icp_launches}
     clear_graphs()
 
 

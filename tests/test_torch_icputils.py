@@ -19,6 +19,8 @@ import torch
 import gradslam_tpu.odometry.icputils as JI
 import gradslam_tpu_torch.odometry.icputils as TI
 from gradslam_tpu_torch.geometry import se3_exp, transform_normals, transform_pointcloud
+from gradslam_tpu_torch.ops import icp_system
+from tests.icp_cases import ICP_CASES, gradicp_kwargs, icp_case, sums_scale, torch_case
 
 torch.set_num_threads(2)
 
@@ -162,3 +164,84 @@ def test_frame_points_from_maps():
     t = TI.frame_points_from_maps(*[_t(m) for m in maps], _t(valid), 4)
     for a, b in zip(j, t):
         np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+
+
+@pytest.mark.parametrize("case", list(ICP_CASES))
+def test_gradicp_system_plain_version_equals_the_composition(case):
+    """The fused loop through the passes' plain versions (the CPU's route of
+    ``_gradicp_system``) against the op-by-op composition that
+    ``point_to_plane_gradICP`` takes on the CPU: within 1e-5 in every pose
+    entry (the sums of the normal equations run in blocks of 256 sources)."""
+    p = torch_case(icp_case(2, 600, 900, seed=len(case), changes=ICP_CASES[case][1]), "cpu")
+    kw = gradicp_kwargs(p, case)
+    want = TI.point_to_plane_gradICP(p["src"], p["tgt"], p["tgt_n"], numiters=10, **kw)
+    before = icp_system.icp_system_kernel.launches
+    gates = icp_system.Gates.of(*(kw.get(k, d) for k, d in (("lambda_max", 2.0), ("B", 1.0), ("B2", 1.0), ("nu", 200.0))))
+    got = TI._gradicp_system(p["src"], p["tgt"], p["tgt_n"], kw.get("initial_transform"), 10, 1e-8,
+                             kw.get("dist_thresh"), gates, p["src_valid"], p["tgt_valid"], kw.get("robust_delta"))
+    assert icp_system.icp_system_kernel.launches == before
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("gates", [dict(), dict(dist_thresh=0.002, robust_delta=0.01)])
+def test_icp_system_sums_equal_the_composition(gates):
+    """``linearize``'s block sums, folded, against ``gauss_newton_solve``'s
+    rows summed as ``solve_linear_system`` sums them: within float32
+    rounding of each sum's scale; the lookahead's solve and step against
+    ``solve_linear_system``, ``se3_exp`` and ``transform_pointcloud``."""
+    p = torch_case(icp_case(2, 700, 900, seed=3, changes=("invalid sources",)), "cpu")
+    prepared = TI.prepare_targets(p["tgt"], p["tgt_valid"])
+    packed = torch.cat([p["tgt"], p["tgt_n"]], -1)
+    dist, idx = TI.knn(p["src"], prepared)
+    partials = torch.empty(2, icp_system.num_blocks(700), icp_system.TERMS)
+    icp_system.linearize(p["src"], dist, idx, packed, p["src_valid"], gates.get("dist_thresh"),
+                         gates.get("robust_delta"), partials)
+    A, b, w, _ = TI.gauss_newton_solve(p["src"], p["tgt"], p["tgt_n"], src_valid=p["src_valid"],
+                                       tgt_valid=p["tgt_valid"], prepared_tgt=prepared, tgt_packed=packed, **gates)
+    Aw = A * w[..., None]
+    iu = torch.triu_indices(6, 6)
+    want = torch.cat([TI._sum_each(Aw[..., :, :, None] * A[..., :, None, :], -3)[:, iu[0], iu[1]],
+                      TI._sum_each(Aw * b, -2), TI._sum_each(w * b[..., 0] ** 2, -1)[:, None]], 1)
+    got = partials.sum(1)
+    assert bool(((got - want).abs() <= 1e-5 * sums_scale(want)).all())
+    damp = torch.full((2,), 1e-3)
+    xi, err, one_step = torch.empty(2, 6), torch.empty(2), torch.empty(2, 700, 3)
+    icp_system.lookahead(p["src"], partials, damp, xi, err, one_step)
+    want_xi = TI.solve_linear_system(A, b, damp, weights=w)[..., 0]
+    np.testing.assert_allclose(xi.numpy(), want_xi.numpy(), rtol=1e-4, atol=1e-7)
+    assert torch.equal(one_step, transform_pointcloud(p["src"], se3_exp(xi)))
+    assert torch.equal(err, got[:, 27])
+
+
+def test_gradicp_dispatch():
+    """The fused loop only for a CUDA float32 input that needs no gradient:
+    a CPU input, and any input that requires grad, take the op-by-op
+    composition (the CPU never launches the kernels)."""
+    p = torch_case(icp_case(1, 200, 300, seed=5), "cpu")
+    before = icp_system.icp_system_kernel.launches
+    T = TI.point_to_plane_gradICP(p["src"], p["tgt"], p["tgt_n"], numiters=3)
+    assert icp_system.icp_system_kernel.launches == before and T.shape == (1, 4, 4)
+    args = (p["src"], p["tgt"], p["tgt_n"], None, p["src_valid"])
+    assert not TI._takes_kernels(*args) and not TI._needs_grad(*args)
+    for i in (0, 1, 2, 4):
+        grad_args = list(args)
+        grad_args[i] = grad_args[i].clone().requires_grad_()
+        assert TI._needs_grad(*grad_args)
+        with torch.no_grad():
+            assert not TI._needs_grad(*grad_args)
+    seed = torch.eye(4)[None].requires_grad_()
+    assert TI._needs_grad(p["src"], p["tgt"], p["tgt_n"], seed, None)
+    # the kernels themselves take CUDA tensors only
+    dist, idx = TI.knn(p["src"], p["tgt"])
+    partials = torch.empty(1, icp_system.num_blocks(200), icp_system.TERMS)
+    with pytest.raises(ValueError, match="CUDA"):
+        icp_system.icp_system_kernel.linearize(p["src"], dist, idx, torch.cat([p["tgt"], p["tgt_n"]], -1), None,
+                                               None, None, partials)
+    with pytest.raises(ValueError, match="CUDA"):
+        icp_system.icp_system_kernel.lookahead(p["src"], partials, torch.ones(1), torch.empty(1, 6), torch.empty(1),
+                                               torch.empty_like(p["src"]))
+    with pytest.raises(ValueError, match="CUDA"):
+        icp_system.icp_system_kernel.update(p["src"], partials, torch.empty(1, 6), torch.empty(1), torch.ones(1),
+                                            torch.eye(4)[None], icp_system.Gates.of(2.0, 1.0, 1.0, 200.0))
+    assert icp_system.icp_system_kernel.launches == before

@@ -12,6 +12,8 @@ card tests at the end run the marks themselves, in a captured graph.
 import importlib.util
 import pathlib
 import re
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -22,6 +24,7 @@ from gradslam_tpu_torch.parallel import DepthCalibParams, slam_loss
 from gradslam_tpu_torch.slam import icpslam as TS
 from gradslam_tpu_torch.slam import stepgraph
 from gradslam_tpu_torch.utils import profiling
+from tests.kineto_log import kineto_log
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 DATA = ROOT / "tests" / "data" / "msrd_b2s3"
@@ -420,8 +423,36 @@ def _device_marks(fn):
     return out, [n for _, n in ops if n.startswith("gs_span_")]
 
 
-@pytest.mark.cuda
-def test_a_replay_runs_the_marks_in_capture_order_and_changes_no_output(card):
+def _is_subsequence(part, whole):
+    rest = iter(whole)
+    return all(n in rest for n in part)
+
+
+def _marks_as_expected(run, want):
+    """``run()`` -> (output, marks) until the marks are ``want``: a trace
+    short of marks is taken again, up to three traces, only where Kineto's
+    count of the device records it dropped as outside the trace's window
+    covers the marks it lacks, and those it holds come in ``want``'s order.
+    Any other difference fails. Returns the output of the run whose marks
+    are ``want``."""
+    for attempt in (1, 2, 3):
+        with kineto_log() as kineto:
+            out, names = run()
+        dropped = kineto["out_of_range"]
+        print(f"trace {attempt} of 3: {len(names)} of {len(want)} marks; Kineto dropped {dropped} device records "
+              f"outside the trace's window")
+        if names == want:
+            return out
+        print(f"marks {names}, want {want}")
+        assert (dropped is not None and len(names) < len(want) and dropped >= len(want) - len(names)
+                and _is_subsequence(names, want)), (names, want, dropped)
+    pytest.fail(f"three traces short of the marks, the last {names} against {want}")
+
+
+def replay_marks_check():
+    """A step graph's replay runs the marks in capture order, and its outputs
+    equal a replay captured without marks."""
+    card = torch.device("cuda", 0)
     rgb, depth, K, poses = (x.to(card) for x in _clip(L=4, stride=2))
 
     def run(marks):
@@ -435,13 +466,28 @@ def test_a_replay_runs_the_marks_in_capture_order_and_changes_no_output(card):
         out, names = _device_marks(lambda: slam.step_state(state, frame(3)))
         return out, names
 
-    with_marks, names = run(True)
-    assert names == _frame_marks(carry=True)
+    with_marks = _marks_as_expected(lambda: run(True), _frame_marks(carry=True))
     without, none = run(False)
     assert none == []
     for a, b in zip(stepgraph.state_tensors(with_marks), stepgraph.state_tensors(without)):
         assert (a is None and b is None) or torch.equal(a, b)
     clear_graphs()
+
+
+@pytest.mark.cuda
+def test_a_replay_runs_the_marks_in_capture_order_and_changes_no_output(card):
+    """``replay_marks_check`` in a process of its own. After the rest of the
+    card suite, a process's traces lose their first device records: on an
+    H100, the first 18 of every trace (298 of the replay's 316 records
+    held), whatever their times, for a 10 ms or 100 ms device spin ahead of
+    the replay was lost with them; Kineto counts them as outside the
+    trace's window. The replay's first mark is among them, with and without
+    the gradICP kernels. A fresh process held all 8 marks in each of 26
+    traces."""
+    out = subprocess.run([sys.executable, "-c", "import tests.test_torch_spans as t; t.replay_marks_check()"],
+                         cwd=ROOT, capture_output=True, text=True, timeout=600)
+    print(out.stdout, end="")
+    assert out.returncode == 0, out.stdout + out.stderr
 
 
 @pytest.mark.cuda
