@@ -4763,10 +4763,12 @@ def icp_phase(dev, smi):
 
 
 def _build_kernels():
-    """Builds every kernel's source at once (one nvcc each) and loads them."""
-    from gradslam_tpu_torch.ops import icp_system_kernel, mask_scan_kernel
+    """Builds every counted kernel's library and the span marks' at once
+    (one nvcc each) and loads them."""
+    from gradslam_tpu_torch.utils import profiling
+    from gradslam_tpu_torch.utils.cuda_build import COUNTED
 
-    kernels = [*_kernels().values(), mask_scan_kernel, icp_system_kernel]
+    kernels = [*COUNTED.values(), profiling._library]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels)) as ex:
         list(ex.map(lambda k: k.load(), kernels))

@@ -30,6 +30,7 @@ import torch
 from ..geometry.geometryutils import transform_pointcloud
 from ..geometry.projutils import matmul_small
 from ..geometry.se3 import se3_exp
+from ..utils.cuda_build import CudaLibrary, check_inputs
 
 __all__ = [
     "SOURCES_PER_BLOCK",
@@ -117,7 +118,11 @@ def update_reference(src, partials, xi, err, damp, transform, gates: Gates):
     transform.copy_(matmul_small(rt, transform))
 
 
-class _IcpSystemKernel:
+_P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+_F32 = torch.float32
+
+
+class _IcpSystemKernel(CudaLibrary):
     """The CUDA kernels' wrapper: builds ``csrc/icp_system.cu`` at first use,
     checks its inputs, launches each pass on the current stream and counts
     the kernels launched in :attr:`launches` (one a pass). It allocates
@@ -125,91 +130,43 @@ class _IcpSystemKernel:
 
     name = "icp_system"
     source = "icp_system.cu"
-
-    def __init__(self):
-        self.launches = 0
-        self._fns = None
-
-    def load(self):
-        """Loads the kernels' library, building it first if needed."""
-        if self._fns is None:
-            from ..utils.cuda_build import build
-
-            lib = ctypes.CDLL(str(build(self.source)))
-            p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-            argtypes = {
-                "linearize": [p, p, p, p, ll, p, i, i, i, f, i, f, p, p],
-                "lookahead": [p, i, i, p, p, p, p, p, p],
-                "update": [p, i, i, p, p, p, p, p, f, f, f, f, f, p],
-            }
-            fns = {}
-            for name, types in argtypes.items():
-                fn = getattr(lib, f"gs_icp_{name}_launch")
-                fn.argtypes, fn.restype = types, ctypes.c_int
-                fns[name] = fn
-            self._lib, self._fns = lib, fns
-        return self._fns
+    entries = {
+        "gs_icp_linearize_launch": [_P, _P, _P, _P, _LL, _P, _I, _I, _I, _F, _I, _F, _P, _P],
+        "gs_icp_lookahead_launch": [_P, _I, _I, _P, _P, _P, _P, _P, _P],
+        "gs_icp_update_launch": [_P, _I, _I, _P, _P, _P, _P, _P, _F, _F, _F, _F, _F, _P],
+    }
 
     def linearize(self, src, dist, idx, tgt_packed, src_w, dist_thresh, robust_delta, partials):
-        B, S = self._check_src(src)
-        if tgt_packed.dim() != 3:
-            raise ValueError(f"icp system kernel: tgt_packed must be (B, T, 6), got {tuple(tgt_packed.shape)}")
-        T = tgt_packed.shape[1]
-        self._check(src, dist=(dist, (B, S)), idx=(idx, (B, S)), tgt_packed=(tgt_packed, (B, T, 6)),
-                    partials=(partials, (B, num_blocks(S), TERMS)))
-        if src_w is not None:
-            self._check(src, src_w=(src_w, (B, S)))
-        self._launch("linearize", src, src.data_ptr(), dist.data_ptr(), idx.data_ptr(), tgt_packed.data_ptr(), T,
-                     None if src_w is None else src_w.data_ptr(), B, S, dist_thresh is not None,
-                     0.0 if dist_thresh is None else dist_thresh, robust_delta is not None,
-                     0.0 if robust_delta is None else robust_delta, partials.data_ptr())
+        B, S = self._check(src, partials, dist=(dist, _F32, ("B", "S")), idx=(idx, torch.int32, ("B", "S")),
+                           tgt_packed=(tgt_packed, _F32, ("B", "T", 6)), src_w=(src_w, _F32, ("B", "S")))
+        self.invoke("gs_icp_linearize_launch", src.device, src.data_ptr(), dist.data_ptr(), idx.data_ptr(),
+                    tgt_packed.data_ptr(), tgt_packed.shape[1], None if src_w is None else src_w.data_ptr(), B, S,
+                    dist_thresh is not None, 0.0 if dist_thresh is None else dist_thresh, robust_delta is not None,
+                    0.0 if robust_delta is None else robust_delta, partials.data_ptr())
 
     def lookahead(self, src, partials, damp, xi, err, one_step):
-        B, S = self._check_src(src)
-        self._check(src, partials=(partials, (B, num_blocks(S), TERMS)), damp=(damp, (B,)), xi=(xi, (B, 6)),
-                    err=(err, (B,)), one_step=(one_step, (B, S, 3)))
-        self._launch("lookahead", src, src.data_ptr(), B, S, partials.data_ptr(), damp.data_ptr(), xi.data_ptr(),
-                     err.data_ptr(), one_step.data_ptr())
+        B, S = self._check(src, partials, damp=(damp, _F32, ("B",)), xi=(xi, _F32, ("B", 6)), err=(err, _F32, ("B",)),
+                           one_step=(one_step, _F32, ("B", "S", 3)))
+        self.invoke("gs_icp_lookahead_launch", src.device, src.data_ptr(), B, S, partials.data_ptr(),
+                    damp.data_ptr(), xi.data_ptr(), err.data_ptr(), one_step.data_ptr())
 
     def update(self, src, partials, xi, err, damp, transform, gates: Gates):
-        B, S = self._check_src(src)
-        self._check(src, partials=(partials, (B, num_blocks(S), TERMS)), xi=(xi, (B, 6)), err=(err, (B,)),
-                    damp=(damp, (B,)), transform=(transform, (B, 4, 4)))
-        self._launch("update", src, src.data_ptr(), B, S, partials.data_ptr(), xi.data_ptr(), err.data_ptr(),
-                     damp.data_ptr(), transform.data_ptr(), *gates)
+        B, S = self._check(src, partials, xi=(xi, _F32, ("B", 6)), err=(err, _F32, ("B",)),
+                           damp=(damp, _F32, ("B",)), transform=(transform, _F32, ("B", 4, 4)))
+        self.invoke("gs_icp_update_launch", src.device, src.data_ptr(), B, S, partials.data_ptr(), xi.data_ptr(),
+                    err.data_ptr(), damp.data_ptr(), transform.data_ptr(), *gates)
 
-    def _check_src(self, src):
-        if src.dim() != 3 or src.shape[-1] != 3:
-            raise ValueError(f"icp system kernel: src must be (B, S, 3), got {tuple(src.shape)}")
-        self._check(src, src=(src, tuple(src.shape)))
+    @staticmethod
+    def _check(src, partials, **inputs):
+        """Checks the sources (B, S, 3), the block sums (B, num_blocks(S),
+        TERMS) and ``inputs`` (:func:`check_inputs`' form) -> (B, S)."""
+        S = src.shape[1] if src.dim() == 3 else 0
+        check_inputs("icp system kernel", src=(src, _F32, ("B", "S", 3)),
+                     partials=(partials, _F32, ("B", num_blocks(S), TERMS)), **inputs)
         B, S = src.shape[:2]
         if B > 65535 or B * S >= 2**31:
             raise ValueError(f"icp system kernel: sizes out of range (B={B}, S={S})")
         return B, S
-
-    @staticmethod
-    def _check(like, **tensors):
-        """Each ``name=(tensor, shape)``: float32 (``idx`` int32), that shape,
-        contiguous, on the CUDA device of ``like`` (the sources)."""
-        for what, (t, shape) in tensors.items():
-            if not t.is_cuda or t.device != like.device:
-                raise ValueError(f"icp system kernel: {what} is on {t.device}; every input must be on one CUDA "
-                                 f"device, the sources' ({like.device})")
-            dtype = torch.int32 if what == "idx" else torch.float32
-            if t.dtype != dtype:
-                raise TypeError(f"icp system kernel: {what} must be {dtype}, got {t.dtype}")
-            if tuple(t.shape) != tuple(shape):
-                raise ValueError(f"icp system kernel: {what} must be {tuple(shape)}, got {tuple(t.shape)}")
-            if not t.is_contiguous():
-                raise ValueError(f"icp system kernel: {what} must be contiguous")
-
-    def _launch(self, name, src, *args):
-        fn = self.load()[name]
-        with torch.cuda.device(src.device):
-            err = fn(*args, torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"icp system kernel {name} launch failed: cudaError {err}")
-        self.launches += 1
 
 
 icp_system_kernel = _IcpSystemKernel()

@@ -21,6 +21,8 @@ from typing import NamedTuple, Optional, Union
 
 import torch
 
+from ..utils.cuda_build import CudaLibrary, check_inputs
+
 __all__ = ["knn", "knn_reference", "prepare_targets", "KnnTargets", "knn_kernel"]
 
 # (B, chunk, T) distance elements per chunk of the plain version: small
@@ -117,29 +119,14 @@ def knn_reference(
     return torch.cat(dists, dim=1), torch.cat(idxs, dim=1)
 
 
-class _KnnKernel:
+class _KnnKernel(CudaLibrary):
     """The CUDA kernel's wrapper: builds ``csrc/knn.cu`` at first use,
     checks its inputs, launches it on the current stream and counts its
     launches in :attr:`launches`."""
 
     name = "knn"
     source = "knn.cu"
-
-    def __init__(self):
-        self.launches = 0
-        self._fn = None
-
-    def load(self):
-        """Loads the kernel's library, building it first if needed."""
-        if self._fn is None:
-            from ..utils.cuda_build import build
-
-            lib = ctypes.CDLL(str(build(self.source)))
-            fn = lib.gst_knn
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            self._lib, self._fn = lib, fn
-        return self._fn
+    entries = {"gst_knn": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]}
 
     @staticmethod
     def tiles(B: int, S: int, T: int):
@@ -160,45 +147,21 @@ class _KnnKernel:
 
     def launch(self, src, packed, limit, k: int, splits: int):
         """One launch with explicit tiles (:meth:`tiles` picks them)."""
-        if not (src.is_cuda and packed.is_cuda and limit.is_cuda) or not (
-            src.device == packed.device == limit.device
-        ):
-            raise ValueError("knn kernel: src, targets and limit must be on one CUDA device")
-        if src.dtype != torch.float32 or packed.dtype != torch.float32:
-            raise TypeError(f"knn kernel takes float32, got {src.dtype} and {packed.dtype}")
-        if limit.dtype != torch.int32:
-            raise TypeError(f"knn kernel: limit must be int32, got {limit.dtype}")
-        if src.dim() != 3 or src.shape[-1] != 3 or packed.dim() != 3 or packed.shape[-1] != 4:
-            raise ValueError(
-                f"knn kernel: src (B, S, 3) and targets (B, T, 4), got "
-                f"{tuple(src.shape)} and {tuple(packed.shape)}"
-            )
+        check_inputs("knn kernel", src=(src, torch.float32, ("B", "S", 3)),
+                     targets=(packed, torch.float32, ("B", "T", 4)), limit=(limit, torch.int32, ("B",)))
         B, S, _ = src.shape
         T = packed.shape[1]
-        if packed.shape[0] != B or tuple(limit.shape) != (B,):
-            raise ValueError(f"knn kernel: batch {B} vs {packed.shape[0]} and limit {tuple(limit.shape)}")
         if k not in (2, 4) or not 1 <= splits <= 8:
             raise ValueError(f"knn kernel: no tiles k={k}, splits={splits}")
         if B > 65535 or B * S >= 2**31 or B * T >= 2**31:
             raise ValueError(f"knn kernel: sizes out of range (B={B}, S={S}, T={T})")
-        if not (src.is_contiguous() and packed.is_contiguous() and limit.is_contiguous()):
-            raise ValueError("knn kernel: inputs must be contiguous")
         if packed.data_ptr() % 16:
             raise ValueError("knn kernel: targets must be 16-byte aligned")
-        fn = self.load()
         dist = torch.empty((B, S), dtype=torch.float32, device=src.device)
         idx = torch.empty((B, S), dtype=torch.int32, device=src.device)
-        if B * S == 0:
-            return dist, idx
-        with torch.cuda.device(src.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = fn(
-                src.data_ptr(), packed.data_ptr(), limit.data_ptr(), dist.data_ptr(),
-                idx.data_ptr(), B, S, T, k, splits, stream,
-            )
-        if err != 0:
-            raise RuntimeError(f"knn kernel launch failed: cudaError {err}")
-        self.launches += 1
+        if B * S:
+            self.invoke("gst_knn", src.device, src.data_ptr(), packed.data_ptr(), limit.data_ptr(), dist.data_ptr(),
+                        idx.data_ptr(), B, S, T, k, splits)
         return dist, idx
 
 

@@ -23,6 +23,8 @@ import ctypes
 
 import torch
 
+from ..utils.cuda_build import CudaLibrary, check_inputs
+
 __all__ = [
     "compact_masked",
     "compact_masked_reference",
@@ -60,7 +62,7 @@ def append_slots_reference(num_points: torch.Tensor, mask: torch.Tensor):
     return slots, mask.sum(dim=1, dtype=torch.int32)
 
 
-class _MaskScanKernel:
+class _MaskScanKernel(CudaLibrary):
     """The CUDA kernel's wrapper: builds ``csrc/scan.cu`` at first use,
     checks its inputs, launches it on the current stream and counts its
     calls (one per compaction or append, each two kernel launches) in
@@ -69,23 +71,8 @@ class _MaskScanKernel:
 
     name = "mask_scan"
     source = "scan.cu"
-
-    def __init__(self):
-        self.launches = 0
-        self._fn = None
-
-    def load(self):
-        """Loads the kernel's library, building it first if needed."""
-        if self._fn is None:
-            from ..utils.cuda_build import build
-
-            lib = ctypes.CDLL(str(build(self.source)))
-            fn = lib.gs_mask_scan
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
-                           ctypes.c_int] + [ctypes.c_void_p] * 5
-            fn.restype = ctypes.c_int
-            self._lib, self._fn = lib, fn
-        return self._fn
+    entries = {"gs_mask_scan": [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
+                                ctypes.c_int] + [ctypes.c_void_p] * 5}
 
     def compact(self, mask: torch.Tensor, out_size: int):
         """(B, N) bool contiguous CUDA ``mask`` -> (idx (B, out_size) int32,
@@ -102,27 +89,14 @@ class _MaskScanKernel:
         """(B, N) bool contiguous CUDA ``mask`` and (B,) int32 ``num_points``
         on its device -> (slots (B, N) int32 ``num_points + cumsum(mask) -
         1``; count (B,) int32, the selected entries)."""
-        B, N = self._check(mask)
-        if not num_points.is_cuda or num_points.device != mask.device:
-            raise ValueError("mask scan kernel: mask and num_points must be on one CUDA device")
-        if num_points.dtype != torch.int32:
-            raise TypeError(f"mask scan kernel: num_points must be int32, got {num_points.dtype}")
-        if tuple(num_points.shape) != (B,) or not num_points.is_contiguous():
-            raise ValueError(f"mask scan kernel: num_points must be a contiguous ({B},), got "
-                             f"{tuple(num_points.shape)}")
+        B, N = self._check(mask, num_points)
         slots = torch.empty((B, N), dtype=torch.int32, device=mask.device)
         return slots, self._launch(mask, 1, 0, None, num_points, slots)
 
     @staticmethod
-    def _check(mask: torch.Tensor):
-        if not mask.is_cuda:
-            raise ValueError(f"mask scan kernel: the mask must be on a CUDA device, got {mask.device}")
-        if mask.dtype != torch.bool:
-            raise TypeError(f"mask scan kernel takes a bool mask, got {mask.dtype}")
-        if mask.dim() != 2:
-            raise ValueError(f"mask scan kernel: a (B, N) mask, got {tuple(mask.shape)}")
-        if not mask.is_contiguous():
-            raise ValueError("mask scan kernel: the mask must be contiguous")
+    def _check(mask: torch.Tensor, num_points=None):
+        check_inputs("mask scan kernel", mask=(mask, torch.bool, ("B", "N")),
+                     num_points=(num_points, torch.int32, ("B",)))
         B, N = mask.shape
         if B > 65535 or B * N >= 2**31:
             raise ValueError(f"mask scan kernel: sizes out of range (B={B}, N={N})")
@@ -134,16 +108,10 @@ class _MaskScanKernel:
         B, N = mask.shape
         if B * N == 0:
             return torch.zeros((B,), dtype=torch.int32, device=mask.device)
-        fn = self.load()
         count = torch.empty((B,), dtype=torch.int32, device=mask.device)
         counts = torch.empty((B, -(-N // _TILE)), dtype=torch.int32, device=mask.device)
-        with torch.cuda.device(mask.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = fn(mask.data_ptr(), B, N, counts.data_ptr(), to_slots, out_size, _ptr(idx), _ptr(num_points),
-                     _ptr(slots), count.data_ptr(), stream)
-        if err != 0:
-            raise RuntimeError(f"mask scan kernel launch failed: cudaError {err}")
-        self.launches += 1
+        self.invoke("gs_mask_scan", mask.device, mask.data_ptr(), B, N, counts.data_ptr(), to_slots, out_size,
+                    _ptr(idx), _ptr(num_points), _ptr(slots), count.data_ptr())
         return count
 
 

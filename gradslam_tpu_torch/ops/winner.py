@@ -29,6 +29,8 @@ import ctypes
 
 import torch
 
+from ..utils.cuda_build import CudaLibrary, check_inputs
+
 __all__ = [
     "winner_keys",
     "winner_order_keys",
@@ -151,7 +153,7 @@ class _Tables:
         self.cur = 1 - c
 
 
-class _WinnerKernel:
+class _WinnerKernel(CudaLibrary):
     """The CUDA kernel's wrapper: builds ``csrc/winner.cu`` at first use,
     checks its inputs, launches it on the current stream and counts its
     launches (one per selection) in :attr:`launches`. Each call allocates
@@ -159,37 +161,24 @@ class _WinnerKernel:
 
     name = "winner"
     source = "winner.cu"
+    entries = {
+        "gst_pixel_winner": [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_void_p] + [ctypes.c_int] * 5
+        + [ctypes.c_void_p],
+        "gst_pixel_winner_max_blocks": [ctypes.POINTER(ctypes.c_int)],
+    }
 
     def __init__(self):
-        self.launches = 0
-        self._fn = None
+        super().__init__()
         self._max_blocks = {}
         self._tables = {}
-
-    def load(self):
-        """Loads the kernel's library, building it first if needed."""
-        if self._fn is None:
-            from ..utils.cuda_build import build
-
-            lib = ctypes.CDLL(str(build(self.source)))
-            fn = lib.gst_pixel_winner
-            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_void_p] + [
-                ctypes.c_int
-            ] * 5 + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            lib.gst_pixel_winner_max_blocks.argtypes = [ctypes.POINTER(ctypes.c_int)]
-            lib.gst_pixel_winner_max_blocks.restype = ctypes.c_int
-            self._lib, self._fn = lib, fn
-        return self._fn
 
     def max_blocks(self) -> int:
         """The most blocks the current device holds at once: a cooperative
         launch takes no more."""
         dev = torch.cuda.current_device()
         if dev not in self._max_blocks:
-            self.load()
             n = ctypes.c_int(0)
-            err = self._lib.gst_pixel_winner_max_blocks(ctypes.byref(n))
+            err = self.load()["gst_pixel_winner_max_blocks"](ctypes.byref(n))
             if err != 0 or n.value < 1:
                 raise RuntimeError(f"winner kernel: occupancy query failed: cudaError {err}")
             self._max_blocks[dev] = n.value
@@ -211,16 +200,9 @@ class _WinnerKernel:
 
     def launch(self, pix, k_hi, k_lo, slot, num_pixels: int, sentinel: int, blocks=None):
         """One launch; ``blocks`` overrides :meth:`grid`'s choice."""
-        ins = (pix, k_hi, k_lo, slot)
+        spec = torch.int32, ("B", "N")
+        check_inputs("winner kernel", pix=(pix, *spec), k_hi=(k_hi, *spec), k_lo=(k_lo, *spec), slot=(slot, *spec))
         dev = pix.device
-        if not all(t.is_cuda and t.device == dev for t in ins):
-            raise ValueError("winner kernel: inputs must be on one CUDA device")
-        if any(t.dtype != torch.int32 for t in ins):
-            raise TypeError(f"winner kernel takes int32, got {[t.dtype for t in ins]}")
-        if pix.dim() != 2 or any(t.shape != pix.shape for t in ins):
-            raise ValueError(f"winner kernel: four (B, N) inputs, got {[tuple(t.shape) for t in ins]}")
-        if not all(t.is_contiguous() for t in ins):
-            raise ValueError("winner kernel: inputs must be contiguous")
         B, N = pix.shape
         P = int(num_pixels)
         if P < 0 or B * max(N, P) >= 2**31 or not -(2**31) <= sentinel < 2**31:
@@ -228,7 +210,6 @@ class _WinnerKernel:
         out = torch.empty((B, P), dtype=torch.int32, device=dev)
         if B * P == 0:
             return out
-        fn = self.load()
         with torch.cuda.device(dev):
             most = self.max_blocks()
             blocks = self.grid(B, N, P, most) if blocks is None else int(blocks)
@@ -239,17 +220,16 @@ class _WinnerKernel:
                                                            torch.cuda.is_current_stream_capturing())
             if fill:
                 best.fill_(-1)
-            err = fn(
-                pix.data_ptr(), k_hi.data_ptr(), k_lo.data_ptr(), slot.data_ptr(), best.data_ptr(),
-                other.data_ptr(), n_other, out.data_ptr(), B, N, P, int(sentinel), blocks, stream,
-            )
-        if err != 0:
-            # whatever the error, the next call on the stream starts from
-            # fresh all-ones tables
-            self._tables.pop((dev.index, stream), None)
-            raise RuntimeError(f"winner kernel launch failed: cudaError {err}")
+            try:
+                self.invoke("gst_pixel_winner", dev, pix.data_ptr(), k_hi.data_ptr(), k_lo.data_ptr(),
+                            slot.data_ptr(), best.data_ptr(), other.data_ptr(), n_other, out.data_ptr(), B, N, P,
+                            int(sentinel), blocks)
+            except RuntimeError:
+                # whatever the error, the next call on the stream starts from
+                # fresh all-ones tables
+                self._tables.pop((dev.index, stream), None)
+                raise
         done()
-        self.launches += 1
         return out
 
     def tables(self, n: int, device, stream, capturing: bool):

@@ -358,10 +358,8 @@ def _winner_slots(view, live, frame_attr, pose, intrinsics, dist_th, dot_th, H, 
         idx, avalid, cand_slots, cand_valid = shard.compact(active, A, src_slots)
         ma = _take(view, idx)
         arena_slot = idx + shard.offset if src_slots is None else src_slots.gather(1, idx.long())
-        # the pixel again from the gathered rows: the same math on the same
-        # values as the projection above
-        ha, wa, _ = _project_points_to_frame(ma[..., 0:3], torch.ones_like(avalid), pose, intrinsics, H, W)
-        pixa = ha * W + wa
+        rows = idx.long()
+        pixa = h.gather(1, rows) * W + w.gather(1, rows)
         sorted_slots = torch.where(avalid, arena_slot, CAP)
     else:
         ma, pixa, avalid = view, h * W + w, active

@@ -56,9 +56,9 @@ handles and warms the allocator, and advances the carry once; a training
 step's warm-up runs its backward there too (autograd runs each backward op
 on its forward op's stream). The next step captures (a capture runs no
 work) and replays. Each graph records its kernels' launch counts while it
-is captured and adds them to the wrappers' counters at every replay, so a
-run counts the launches of the eager run (a backward launches none of
-the kernels).
+is captured and adds them to the counters of ``utils/cuda_build``'s
+registry of counted kernels at every replay, so a run counts the launches
+of the eager run (a backward launches none of the kernels).
 
 The JAX package also jits its loop closure and its refiners, each a
 ``fori_loop`` of small ops: :func:`graphed` captures such a function of
@@ -95,11 +95,8 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from ..ops.icp_system import icp_system_kernel
-from ..ops.knn import knn_kernel
-from ..ops.masking import mask_scan_kernel
-from ..ops.winner import winner_kernel
 from ..structures.maparena import MapState
+from ..utils.cuda_build import add_launch_counts, launch_counts, restore_launch_counts
 from ..utils.profiling import span
 
 __all__ = [
@@ -119,9 +116,6 @@ __all__ = [
     "running",
     "state_tensors",
 ]
-
-# the wrappers whose launch counts a replay adds to
-_KERNELS = (knn_kernel, winner_kernel, mask_scan_kernel, icp_system_kernel)
 
 # captured steps a cache keeps (the ones used last)
 MAX_GRAPHS = 4
@@ -221,10 +215,6 @@ def clear_graphs():
         cache.clear()
 
 
-def _launch_counts():
-    return [k.launches for k in _KERNELS]
-
-
 class _Captured:
     """A function over static buffers on a CUDA device: run eagerly on a
     side stream at the first call, captured at the second and replayed from
@@ -236,7 +226,7 @@ class _Captured:
         self.warm = False
         self.graph = None
         self.out = None
-        self.launches = None  # per replay, one entry a kernel wrapper
+        self.launches = None  # per replay, {name: launches} of each counted kernel
         self.capture_s = None
 
     def __call__(self, fn):
@@ -249,8 +239,7 @@ class _Captured:
                     self._capture(fn)
             with span("graph.replay"):
                 self.graph.replay()
-        for k, n in zip(_KERNELS, self.launches):
-            k.launches += n
+        add_launch_counts(self.launches)
         return self.out
 
     def _warm_up(self, fn):
@@ -266,7 +255,7 @@ class _Captured:
         return out
 
     def _capture(self, fn):
-        before = _launch_counts()
+        before = launch_counts()
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
         try:
@@ -274,12 +263,11 @@ class _Captured:
                 out = fn()
         finally:
             # a capture launches nothing: its counts become the replays'
-            captured = _launch_counts()
-            for k, n in zip(_KERNELS, before):
-                k.launches = n
+            captured = launch_counts()
+            restore_launch_counts(before)
         self.capture_s = time.perf_counter() - t0
         self.graph, self.out = graph, out
-        self.launches = [a - b for a, b in zip(captured, before)]
+        self.launches = {name: n - before[name] for name, n in captured.items()}
 
 
 def _tensors(x):
@@ -348,7 +336,7 @@ class _Graph:
         ``{"knn": n, "winner": n, "mask_scan": n, "icp_system": n}`` (None
         before the capture)."""
         n = self._run.launches
-        return None if n is None else {k.name: c for k, c in zip(_KERNELS, n)}
+        return None if n is None else dict(n)
 
 
 class StepGraph(_Graph):

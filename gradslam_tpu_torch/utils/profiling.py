@@ -68,6 +68,8 @@ from typing import Optional
 import torch
 import torch.autograd.profiler as _autograd_profiler
 
+from .cuda_build import CudaLibrary
+
 __all__ = [
     "trace",
     "annotate",
@@ -147,29 +149,19 @@ def _marks_on(device: torch.device) -> bool:
     return not _marks_off and device.type == "cuda"
 
 
-class _MarkLibrary:
+class _MarkLibrary(CudaLibrary):
     """``csrc/spans.cu``'s library: built at the first mark, one launch of
     an empty kernel a mark on the current stream."""
 
     source = "spans.cu"
-
-    def __init__(self):
-        self._fn = None
+    entries = {"gst_span_marks": [], "gst_span_mark": [ctypes.c_int, ctypes.c_void_p]}
 
     def load(self):
-        if self._fn is None:
-            from .cuda_build import build
-
-            lib = ctypes.CDLL(str(build(self.source)))
-            lib.gst_span_marks.argtypes = []
-            lib.gst_span_marks.restype = ctypes.c_int
-            if lib.gst_span_marks() != len(MARKS):
-                raise RuntimeError(f"{self.source} has {lib.gst_span_marks()} marks, the table {len(MARKS)}")
-            fn = lib.gst_span_mark
-            fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            self._lib, self._fn = lib, fn
-        return self._fn
+        fns = super().load()
+        if fns["gst_span_marks"]() != len(MARKS):
+            self._fns = None
+            raise RuntimeError(f"{self.source} has {fns['gst_span_marks']()} marks, the table {len(MARKS)}")
+        return fns
 
 
 _library = _MarkLibrary()
@@ -177,12 +169,7 @@ _library = _MarkLibrary()
 
 def _launch(mark: str, device: torch.device) -> None:
     """Launches ``mark`` on ``device``'s current stream."""
-    fn = _library.load()
-    switch = device.index is not None and device.index != torch.cuda.current_device()
-    with torch.cuda.device(device) if switch else contextlib.nullcontext():
-        err = fn(_MARK_IDS[mark], torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"span mark {mark} failed to launch: cudaError {err}")
+    _library.invoke("gst_span_mark", device, _MARK_IDS[mark])
 
 
 class _Span:

@@ -231,7 +231,7 @@ def test_winner_kernel_after_a_refused_launch(cuda_device):
     gen = np.random.default_rng(13)
     args = _winner_inputs(gen, B, N, P, cuda_device, ties=True)
     pixel_winner(*args, P, N)
-    fn = winner_kernel.load()
+    fn = winner_kernel.load()["gst_pixel_winner"]
     out = torch.empty((B, P), dtype=torch.int32, device=cuda_device)
     best = torch.full((B * P,), -1, dtype=torch.int64, device=cuda_device)
     err = fn(*(t.data_ptr() for t in args), best.data_ptr(), best.data_ptr(), 0, out.data_ptr(), B, N, P, N,
@@ -550,6 +550,36 @@ def test_icp_system_kernel_rejects_what_it_does_not_take(cuda_device):
                                  icp_system.Gates.of(2.0, 1.0, 1.0, 200.0))
     with pytest.raises(ValueError):  # the CPU's plain version takes no CUDA buffer
         icp_system.linearize(src.cpu(), dist, idx, packed, None, None, None, partials)
+
+
+_CHECK_CASES = {
+    "an input on the cpu": (ValueError, lambda a, b: dict(b=b.cpu())),
+    "the device before the dtype": (ValueError, lambda a, b: dict(b=b.long().cpu())),
+    "a dtype": (TypeError, lambda a, b: dict(b=b.long())),
+    "the dtype before the shape": (TypeError, lambda a, b: dict(b=b.long()[:, :4])),
+    "a rank": (ValueError, lambda a, b: dict(a=a[0])),
+    "a size": (ValueError, lambda a, b: dict(a=a[..., :2].contiguous())),
+    "a named size": (ValueError, lambda a, b: dict(b=b[:, :4].contiguous())),
+    "the shape before contiguity": (ValueError, lambda a, b: dict(a=a[:, ::2])),
+    "contiguity": (ValueError, lambda a, b: dict(a=a.transpose(0, 1).contiguous().transpose(0, 1))),
+}
+
+
+@pytest.mark.parametrize("case", list(_CHECK_CASES))
+def test_check_inputs_error_types(cuda_device, case):
+    """``cuda_build.check_inputs``, which every kernel wrapper calls: one
+    CUDA device, then the dtype (TypeError), then the shape and contiguity
+    (ValueError), in that order; a None input is left out."""
+    from gradslam_tpu_torch.utils.cuda_build import check_inputs
+
+    a = torch.zeros((2, 8, 3), device=cuda_device)
+    b = torch.zeros((2, 8), dtype=torch.int32, device=cuda_device)
+    error, broken = _CHECK_CASES[case]
+    spec = {"a": (torch.float32, ("B", "N", 3)), "b": (torch.int32, ("B", "N")), "c": (torch.float32, (5,))}
+    given = {"a": a, "b": b, "c": None}
+    check_inputs("test kernel", **{n: (t, *spec[n]) for n, t in given.items()})
+    with pytest.raises(error):
+        check_inputs("test kernel", **{n: (t, *spec[n]) for n, t in {**given, **broken(a, b)}.items()})
 
 
 def _clip():

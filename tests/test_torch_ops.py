@@ -9,6 +9,8 @@ those tests are in test_torch_cuda.py.
 """
 
 import pathlib
+import subprocess
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -27,12 +29,16 @@ from gradslam_tpu_torch.ops import (
     append_slots_reference,
     compact_masked,
     compact_masked_reference,
+    icp_system_kernel,
     knn,
     knn_kernel,
     knn_reference,
     mask_scan_kernel,
     prepare_targets,
+    winner_kernel,
 )
+from gradslam_tpu_torch.ops.winner import _WinnerKernel
+from gradslam_tpu_torch.utils import cuda_build, profiling
 from tests.mask_cases import MASK_EDGES, mask_case
 
 torch.set_num_threads(2)
@@ -240,3 +246,64 @@ def test_knn_on_golden_clip_main_path_inputs_equals_jax(monkeypatch):
                          use_pallas=False)
         np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
         np.testing.assert_array_equal(dt.numpy(), np.asarray(dj))
+
+
+def test_counted_kernels_are_the_four_wrappers():
+    """The registry that captured graphs read holds each counted wrapper by
+    its name, and the span marks are not counted."""
+    assert cuda_build.COUNTED == {"knn": knn_kernel, "winner": winner_kernel, "mask_scan": mask_scan_kernel,
+                                  "icp_system": icp_system_kernel}
+    assert all(k.name == name for name, k in cuda_build.COUNTED.items())
+    assert profiling._library.name is None and profiling._library not in cuda_build.COUNTED.values()
+
+
+def test_a_second_wrapper_of_a_name_leaves_the_registry_as_it_is():
+    """A wrapper constructed after the module's own (as a test makes one)
+    leaves the module's registered, so the graphs keep counting its launches."""
+    before = dict(cuda_build.COUNTED)
+    _WinnerKernel()
+    assert cuda_build.COUNTED == before and cuda_build.COUNTED["winner"] is winner_kernel
+
+
+def test_importing_the_package_builds_and_loads_no_library():
+    """Every module of the package imported in a fresh process: no library
+    loaded, no compiler started, every CUDA library still unloaded."""
+    code = """
+import ctypes, importlib, pkgutil, subprocess
+import torch
+loaded, started = [], []
+cdll_init, popen_init = ctypes.CDLL.__init__, subprocess.Popen.__init__
+ctypes.CDLL.__init__ = lambda self, name, *a, **k: (loaded.append(name), cdll_init(self, name, *a, **k))[1]
+subprocess.Popen.__init__ = lambda self, args, *a, **k: (started.append(args), popen_init(self, args, *a, **k))[1]
+import gradslam_tpu_torch
+for m in pkgutil.walk_packages(gradslam_tpu_torch.__path__, "gradslam_tpu_torch."):
+    importlib.import_module(m.name)
+from gradslam_tpu_torch.ops.winner import _WinnerKernel
+from gradslam_tpu_torch.utils import cuda_build, profiling
+libs = [*cuda_build.COUNTED.values(), profiling._library]
+print(loaded, started, sorted(k.source for k in libs if k._fns is not None), len(libs))
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, check=True,
+                         cwd=pathlib.Path(__file__).parents[1])
+    assert out.stdout.split("\n")[-2] == "[] [] [] 5"
+
+
+def test_launch_counts_snapshot_restore_and_add():
+    """The counts as a captured graph keeps them: a snapshot before the
+    capture, restored after it (a capture launches nothing), and the
+    capture's calls added at every replay."""
+    saved = cuda_build.launch_counts()
+    try:
+        before = cuda_build.launch_counts()
+        knn_kernel.launches += 2  # the calls made while a graph is captured
+        icp_system_kernel.launches += 8
+        captured = cuda_build.launch_counts()
+        cuda_build.restore_launch_counts(before)
+        assert cuda_build.launch_counts() == before
+        per_replay = {name: n - before[name] for name, n in captured.items()}
+        assert per_replay == {"knn": 2, "winner": 0, "mask_scan": 0, "icp_system": 8}
+        for _ in range(3):
+            cuda_build.add_launch_counts(per_replay)
+        assert cuda_build.launch_counts() == {name: n + 3 * per_replay[name] for name, n in before.items()}
+    finally:
+        cuda_build.restore_launch_counts(saved)
